@@ -5,7 +5,10 @@ same functions in PyTorch, with hand-written CUDA kernels for Hopper where the
 reference has Pallas kernels. It imports no JAX and nothing of
 ``delora_tpu``.
 
-Ported so far: the serving path (``serving/stream.py::StreamingOdometry``).
+Ported so far: the serving path (``serving/stream.py::StreamingOdometry``)
+and the training step of the main path with a trainer that takes its steps
+from in-memory scans (``training/trainer.py::Trainer``: fully-cached feed,
+image-space matcher, hard matching).
 """
 
 from __future__ import annotations

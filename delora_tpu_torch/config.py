@@ -1,10 +1,17 @@
-"""The settings of the ported slice, as Python data.
+"""The settings of the ported slices, as Python data.
 
 The same flat dict that ``delora_tpu.config.load_config()`` builds from its
-YAML stack, cut to the keys the serving path reads: the KITTI sensor spec and
-the model keys. Values are those of ``delora_tpu/configs/*.yaml``; fields of
-view are written in degrees and converted to radians once, by the same
-formula, so the floats are identical.
+YAML stack, cut to the keys the serving and training paths read: the KITTI
+sensor spec, the model keys, and the training, loss and correspondence keys.
+Values are those of ``delora_tpu/configs/*.yaml``; fields of view are written
+in degrees and converted to radians once, by the same formula, so the floats
+are identical. Keys the YAML leaves commented out (``lr_decay_steps``,
+``lr_min_ratio``, ``seed``) are read with the reference's defaults where they
+are used.
+
+Settings whose code is not ported yet raise in validation rather than run
+silently: soft matching, reverse po2pl, parameter EMA, dropout, augmentation
+and any correspondence other than ``image``.
 """
 
 from __future__ import annotations
@@ -25,7 +32,33 @@ _DEFAULTS: Dict[str, Any] = {
     # deployment.yaml
     "datasets": ["kitti"],
     "compute_dtype": "bfloat16",
-    # hyperparameters.yaml
+    "unsupervised_at_start": False,
+    "steps_per_dispatch": 32,
+    # hyperparameters.yaml: training
+    "batch_size": 32,
+    "learning_rate": 0.00001,
+    "lr_schedule": "constant",
+    "lr_scaling": "none",
+    "lr_scaling_base_batch": 32,
+    "ema_decay": 0.0,
+    "epochs": 10000,
+    "use_dropout": False,
+    "random_point_cloud_rotations": False,
+    # hyperparameters.yaml: losses and correspondence
+    "lambda_po2pl": 1.0,
+    "normal_loss": "squared",
+    "point_to_point_loss": False,
+    "point_to_plane_loss": True,
+    "plane_to_plane_loss": True,
+    "po2po_alone": False,
+    "correspondence": "image",
+    "projective_window": [5, 9],
+    "po2pl_trim_distance": 0.0,
+    "soft_match_sigma": 0.0,
+    "lambda_pl2pl": 1.0,
+    "normalization_scaling": False,
+    "lambda_reverse_po2pl": 0.0,
+    # hyperparameters.yaml: model
     "activation_fct": "tanh",
     "resnet_outputs": 1000,
     "pre_feature_extraction": False,
@@ -71,20 +104,49 @@ def default_config(
     (fields of view in degrees) and are deep-merged over ``base``, a dict this
     function returned before (for example a checkpoint's), else over the
     defaults."""
-    if base is None:
-        config = _fov_to_radians(copy.deepcopy(_DEFAULTS))
-    else:
-        config = copy.deepcopy(dict(base))
+    config = _fov_to_radians(copy.deepcopy(_DEFAULTS))
+    if base is not None:
+        # A base from an older slice may lack the keys added since.
+        _deep_merge(config, base)
     if overrides:
         _deep_merge(config, _fov_to_radians(copy.deepcopy(dict(overrides))))
     config["_fov_in_radians"] = True
-    _validate(config)
+    validate(config)
     return config
 
 
-def _validate(config: Mapping[str, Any]) -> None:
+# Settings whose code the port does not have yet: (key, value that is
+# ported, what the other values would turn on).
+_NOT_PORTED = (
+    ("soft_match_sigma", 0.0, "soft window matching"),
+    ("lambda_reverse_po2pl", 0.0, "the reverse point-to-plane term"),
+    ("ema_decay", 0.0, "the parameter EMA"),
+    ("use_dropout", False, "dropout"),
+    ("random_point_cloud_rotations", False, "augmentation"),
+)
+
+
+def validate(config: Mapping[str, Any]) -> None:
+    """Raise for a config the port cannot run: bad values, or settings whose
+    code is not ported yet (NotImplementedError)."""
     if config["activation_fct"] not in ("relu", "tanh"):
         raise ValueError('activation_fct must be "relu" or "tanh"')
+    if config["normal_loss"] not in ("squared", "linear"):
+        raise ValueError('normal_loss must be "squared" or "linear"')
+    if config["correspondence"] != "image":
+        raise NotImplementedError(
+            f"correspondence {config['correspondence']!r} is not ported; the port "
+            'has the image-space matcher only (correspondence: "image")')
+    for key, ported, what in _NOT_PORTED:
+        if config[key] != ported:
+            raise NotImplementedError(
+                f"{key}={config[key]!r} turns on {what}, which is not ported yet "
+                f"(the port runs {key}={ported!r})")
+    if config["lr_schedule"] not in ("constant", "cosine"):
+        raise ValueError('lr_schedule must be "constant" or "cosine"')
+    window = config["projective_window"]
+    if len(window) != 2 or any(int(w) < 1 or int(w) % 2 == 0 for w in window):
+        raise ValueError(f"projective_window must be two odd sizes >= 1, got {window}")
     if config["quaternion_normalization"] not in ("per_row", "global"):
         raise ValueError('quaternion_normalization must be "per_row" or "global"')
     if config["compute_dtype"] not in ("bfloat16", "float32"):

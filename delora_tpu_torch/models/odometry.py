@@ -113,8 +113,10 @@ class OdometryModel(nn.Module):
     def forward(self, image_1: torch.Tensor, image_2: torch.Tensor):
         """image_*: [B, H, W, C] -> (translation [B, 3], quat_xyzw [B, 4]), f32."""
         cfg = self.cfg
-        x1 = image_1.permute(0, 3, 1, 2)
-        x2 = image_2.permute(0, 3, 1, 2)
+        # Contiguous NCHW: the CPU convolution's backward crashes on the
+        # channels-last strides a bare permute leaves.
+        x1 = image_1.permute(0, 3, 1, 2).contiguous()
+        x2 = image_2.permute(0, 3, 1, 2).contiguous()
         with torch.autocast(x1.device.type, dtype=cfg.compute_dtype,
                             enabled=cfg.compute_dtype != torch.float32):
             if self.feature_extractor is not None:

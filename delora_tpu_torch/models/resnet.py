@@ -90,7 +90,8 @@ class BasicBlock(nn.Module):
 class CircularResNet(nn.Module):
     """Stem, four stages, global mean and ``fc``; returns the fc output.
 
-    Dropout is not ported: serving runs the model deterministically.
+    Dropout (``use_dropout``, off by default) is not ported yet; the config
+    refuses it, so training and serving both run the model without it.
     """
 
     STAGE_STRIDES = ((1, 1), (1, 2), (1, 2), (2, 2))

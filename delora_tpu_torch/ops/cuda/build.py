@@ -16,7 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -64,6 +67,19 @@ def build(name: str) -> str:
                            f"{proc.stdout}")
     os.replace(tmp, target)
     return proc.stdout
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Tuple[str, float]]:
+    """Compile several sources at once, one ``nvcc`` each, all started
+    together -> {name: (compiler output, seconds)}; raises if any fails."""
+    def timed(name: str) -> Tuple[str, float]:
+        start = time.perf_counter()
+        log = build(name)
+        return log, time.perf_counter() - start
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+    return {name: future.result() for name, future in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

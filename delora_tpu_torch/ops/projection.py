@@ -1,11 +1,16 @@
 """Spherical range-image projection with closest-point-per-pixel dedup.
 
-The port of ``delora_tpu/ops/projection.py``'s image-only route
-(``project_image`` -> ``project_compact_exact``): per point, azimuth and
-elevation pixel coordinates, a field-of-view cull, then dense winner placement
-(``ops/cuda/placement.py``), which keeps per pixel the point with the smallest
-range (ties: lowest index) and appends the range as the last channel. The port
-has no 16-bit pixel-id limit, so every H*W takes this route.
+The port of ``delora_tpu/ops/projection.py``'s image-only routes: per point,
+azimuth and elevation pixel coordinates, a field-of-view cull, then dense
+winner placement (``ops/cuda/placement.py``).
+
+- ``project_image`` (serving; the reference's ``project_image`` ->
+  ``project_compact_exact``): per pixel the point with the smallest range
+  (ties: lowest index), range appended as the last channel. The port has no
+  16-bit pixel-id limit, so every H*W takes this route.
+- ``project_image_packed_batch`` (the train step's re-projection of the warped
+  source): the packed 16-bit range rule of ``project_image_packed_batch``,
+  with the reference's count of overflowing placement tiles.
 """
 
 from __future__ import annotations
@@ -94,3 +99,54 @@ def project_image(points: torch.Tensor, valid: torch.Tensor,
     points = points.to(torch.float32).contiguous()
     r, _, _, _, pix = _pixel_coords(points, valid, spec)
     return placement(pix[None], r[None], points[None], spec.height, spec.width)[0]
+
+
+# The reference's XLA placement works in 1024-pixel tiles, each reading a
+# window of at most 3072 sorted entries (projection.py:248-360).
+_TILE = 1024
+_TILE_ENTRIES = 3072
+
+
+def project_image_packed_batch(points: torch.Tensor, valid: torch.Tensor,
+                               spec: ProjectionSpec, values: torch.Tensor = None,
+                               return_overflow: bool = False, append_range: bool = True):
+    """Image-only projection under the packed winner rule, batched:
+    ``[B, N, 3]`` points, ``[B, N]`` bool -> ``[B, H, W, C]`` float32, where
+    the payload is ``values`` ``[B, N, C']`` (else the points) and
+    C = C' + ``append_range``. Pixel and range keys always come from
+    ``points``.
+
+    Winner rule: the reference's stable sort on
+    ``pix << 16 | f32_bits(range) >> 16`` (projection.py:319-322), i.e. the
+    lowest index among the points whose ranges agree with the pixel's
+    smallest in the top 16 bits.
+
+    ``return_overflow`` also returns ``[B]`` int32 counts of overflowing
+    placement tiles, by the rule of the reference's XLA route
+    (projection.py:350-359): a 1024-pixel tile overflows when more than
+    ``min(3072, N)`` in-FoV entries land in it. (The reference's Pallas route
+    counts against ``nchunks * 512`` chunk-aligned entries instead,
+    :576-582, so the two reference routes can disagree on the count.) The
+    port never drops a winner, whereas the reference's XLA route empties the
+    tail of an overflowing tile: the two images agree where the count is 0.
+
+    Requires H*W < 65536, as the reference does; the train step takes the
+    exact rule beyond that, as the reference's does (step.py:277, :288-291).
+    """
+    H, W = spec.height, spec.width
+    if H * W >= (1 << 16):
+        raise ValueError(f"project_image_packed_batch needs H*W < 65536, got {H * W}")
+    points = points.to(torch.float32)
+    feat = (points if values is None else values).to(torch.float32).contiguous()
+    r, _, _, in_fov, pix = _pixel_coords(points, valid, spec)
+    image = placement(pix.contiguous(), r.contiguous(), feat, H, W, packed=True,
+                      append_range=append_range)
+    if not return_overflow:
+        return image
+    B, N = pix.shape
+    n_tiles = -(-H * W // _TILE)
+    tile = torch.where(in_fov, pix // _TILE, n_tiles).to(torch.int64)
+    counts = torch.zeros(B, n_tiles + 1, dtype=torch.int32, device=pix.device)
+    counts.scatter_add_(1, tile, torch.ones_like(tile, dtype=torch.int32))
+    overflow = (counts[:, :n_tiles] > min(_TILE_ENTRIES, N)).sum(-1, dtype=torch.int32)
+    return image, overflow

@@ -5,7 +5,9 @@
 anything ``np.asarray`` accepts) and returns the port's ``state_dict``: conv
 kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in]. The layout (blocks
 per stage, head kind, feature extractor) is read off the tree itself.
-``params_to_jax`` is the exact inverse.
+``params_to_jax`` is the exact inverse, and ``grads_to_jax`` maps a model's
+parameter gradients onto the same tree, so that they can be held against
+``jax.grad`` leaf by leaf.
 """
 
 from __future__ import annotations
@@ -115,3 +117,12 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             raise KeyError(f"unexpected state_dict entry {name!r}")
     return {"params": out}
+
+
+def grads_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The gradients of ``model``'s parameters as a Flax ``{'params': ...}``
+    tree with numpy leaves; zeros where a parameter has no gradient."""
+    return params_to_jax({
+        name: p.grad if p.grad is not None else torch.zeros_like(p)
+        for name, p in model.named_parameters()
+    })

@@ -50,3 +50,38 @@ def test_config_rejects_bad_values():
         default_config({"activation_fct": "gelu"})
     with pytest.raises(ValueError):
         default_config({"quaternion_normalization": "none"})
+
+
+@pytest.mark.parametrize("override", [
+    {"soft_match_sigma": 0.3},
+    {"lambda_reverse_po2pl": 1.0},
+    {"ema_decay": 0.999},
+    {"use_dropout": True},
+    {"random_point_cloud_rotations": True},
+    {"correspondence": "projective"},
+    {"correspondence": "brute"},
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def test_unported_settings_raise(override):
+    """Settings whose code the port does not have are refused, never run."""
+    with pytest.raises(NotImplementedError):
+        default_config(override)
+
+
+def test_config_carries_the_training_keys():
+    config = default_config()
+    for key in ("batch_size", "learning_rate", "lr_schedule", "lr_scaling",
+                "lr_scaling_base_batch", "epochs", "point_to_point_loss", "point_to_plane_loss",
+                "plane_to_plane_loss", "po2po_alone", "normal_loss", "lambda_po2pl",
+                "lambda_pl2pl", "po2pl_trim_distance", "correspondence", "projective_window",
+                "normalization_scaling", "unsupervised_at_start", "steps_per_dispatch"):
+        assert key in config
+    assert config["correspondence"] == "image" and config["projective_window"] == [5, 9]
+
+
+def test_config_rejects_bad_training_values():
+    with pytest.raises(ValueError):
+        default_config({"normal_loss": "cubic"})
+    with pytest.raises(ValueError):
+        default_config({"lr_schedule": "linear"})
+    with pytest.raises(ValueError):
+        default_config({"projective_window": [4, 9]})

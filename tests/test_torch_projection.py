@@ -115,19 +115,3 @@ def test_placement_plain_winner_rule():
     out = placement_plain(pix, r, vals, 2, 2).reshape(4, 2)
     np.testing.assert_array_equal(
         out.numpy(), [[16.0, 9.0], [11.0, 2.0], [0.0, 0.0], [13.0, 7.0]])
-
-
-@pytest.mark.cuda
-def test_placement_kernel_bit_equal_to_plain_on_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    B, N = 2, 4096
-    pts, valid = make_cloud(5, n=N, batch=(B,))
-    pts_t = torch.from_numpy(pts).cuda()
-    r, _, _, _, pix = tproj._pixel_coords(pts_t, torch.from_numpy(valid).cuda(), TSPEC)
-    before = placement.launches
-    out = placement(pix, r, pts_t, H, W)
-    torch.cuda.synchronize()
-    assert placement.launches == before + 1
-    ref = placement_plain(pix, r, pts_t, H, W)
-    assert torch.equal(out, ref)
