@@ -6,8 +6,9 @@ Phases, each announced on flushed lines; any failure raises and the script
 exits non-zero without printing a result:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the port's CUDA sources (placement, window matcher),
-   one compiler each, started together; each one's time and ``-Xptxas -v``;
+2. build: nvcc builds the port's CUDA sources (placement, window matcher,
+   1-NN search), one compiler each, started together; each one's time and
+   ``-Xptxas -v``;
 3. drive: 24 ray-cast scans of a street (64 beams x 2000 azimuth steps) with
    the analytic normal of the surface each ray hit, turned to the sensor;
 4. kernels: each kernel against its plain PyTorch version on the card,
@@ -21,6 +22,15 @@ exits non-zero without printing a result:
    - window matcher, B = 8 at 64x720 with windows (5,9) and (9,17), and
      B = 1 at 64x2250, on targets with duplicated points (ties) and empty
      rows;
+   - soft window matcher, sigma 0.3, B = 8 at 64x720 with windows (5,9) and
+     (9,17): squared distances and misses bit-equal, blends within
+     rtol 1e-5 / atol 1e-5 (set before its first run), the measured maximum
+     printed;
+   - index search (the reverse direction's), B = 8 at 64x720, (5,9): target
+     pixels against a warped-source image with its occupancy plane;
+   - exact 1-NN, B = 8, S = 46,080 warped survivors against T = 131,072
+     padded target points with the drive's survivor mask, and a near-tie
+     cloud with duplicated targets;
    with the time of a wrapper call (CUDA events), the kernels' device time
    (torch.profiler), the plain version's time, the bound and a one-call
    PyTorch yardstick where there is one;
@@ -36,10 +46,31 @@ exits non-zero without printing a result:
    card's idle share; one fp32 step (TF32 off) on the card against the CPU
    (plain kernels) on the same batch and params; from the identity, 20 Adam
    steps (lr 1e-4) on one fixed batch must lower ``loss_pc`` (the mean of the
-   last three 3% below the first).
+   last three 3% below the first);
+7. training, quality recipe: the same model, B and scans on the fully-cached
+   feed with soft matching (sigma 0.3), the reverse po2pl term (1.0), the
+   parameter EMA (0.999) and dropout; every step finite with
+   ``loss_po2pl_rev`` > 0 and one launch each of the soft matcher, the index
+   search and the placement; pairs/s and the device split; the EMA weights
+   finite and apart from the live ones, the deploy model's pose on one pair
+   finite and rigid; one fp32 step (TF32 off, dropout off) against the CPU;
+8. training, brute correspondence on the raw feed: the same model and B on
+   the padded clouds (131,072 points) in tables on the card; every step
+   finite with one 1-NN launch; pairs/s and the device split; one fp32 step
+   against the CPU on a reduced cloud (max_points 16,384, B = 2: the CPU's
+   exact search over full clouds would take minutes).
 
 The last lines are the card (nvidia-smi), the kernel table as one JSON object,
 and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --train-rate EPOCHS
+
+times the main path's training alone in a fresh process: phase 6's trainer
+on phase 3's drive, 2 supervised epochs, then EPOCHS unsupervised ones; it
+prints each epoch's pairs/s from the fourth on, their median and quartiles.
+It uses only the trainer's long-standing interface, so this one file,
+placed beside an older commit's ``delora_tpu_torch``, times both commits the
+same way.
 """
 
 from __future__ import annotations
@@ -57,18 +88,29 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
-FP64_OPS_PER_S = 34e12              # float64 outside the tensor cores
 H, W, N = 64, 720, 131072
 TRAIN_B = 8
 SEED = 0
 PLACEMENT_KERNELS = ("init_keys", "select_winners", "write_image")
 MATCHER_KERNELS = ("window_match_hard",)
+SOFT_KERNELS = ("window_match_soft",)
+NN_KERNELS = ("nn_compact_targets", "nn_search")
 OPTIMIZER_KERNELS = ("multi_tensor_apply", "adam")
 # Tolerances of the fp32 card step against the CPU step, set before the first
 # run: the card's atan2 and conv sums differ from the CPU's in the last bits,
 # so a few warped points change pixel and a few matches change hands; each
 # moves the means by about 1 / (number of pairs) ~ 3e-5.
 FP32_RTOL = 1e-3
+# The soft matcher's blends against its plain version on the card, set before
+# its first run: the kernel's expf and torch.exp may differ in the last bit,
+# which moves a blend by about 1e-7 of the spread of its candidates.
+SOFT_RTOL = SOFT_ATOL = 1e-5
+RECIPE = {"soft_match_sigma": 0.3, "lambda_reverse_po2pl": 1.0, "ema_decay": 0.999,
+          "use_dropout": True}
+# The brute phase's fp32 card-vs-CPU step runs on clouds cut to this many
+# points and this batch: the CPU's exact search over 46,080 x 131,072 slots a
+# scan pair would take minutes.
+BRUTE_CHECK_POINTS, BRUTE_CHECK_B = 16384, 2
 # Gradients reach the loss: from the identity, LOSS_STEPS Adam steps at
 # LOSS_LR on one fixed batch must bring the mean loss_pc of the last three
 # steps 3% below the first step's.
@@ -374,6 +416,17 @@ def matcher_inputs(image, normals, rng):
     return src[..., 0:3], tgt[..., 0:3], normals.contiguous()
 
 
+def matcher_bound(moved, visited, occupied, per_occupied):
+    """(bound_ms, bound_by, bytes_ms, ops_ms) of a window matcher that moves
+    ``moved`` bytes, spends 3 float32 operations on each visited candidate
+    (its row test, column wrap and occupancy test) and ``per_occupied`` on
+    each occupied one (the distance's three differences, its product and two
+    fmas, counted as 9 with the compare, plus whatever the branch adds)."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = (3 * visited + per_occupied * occupied) / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
+
+
 def window_work(tgt_xyz, window):
     """(candidates the matcher visits: in-image window offsets summed over
     pixels; of them occupied, each costing a distance) for this target."""
@@ -413,11 +466,7 @@ def check_matcher(trainer, spec, scan, rng, card):
         # write sq, xyz and normal once (28 B a pixel).
         moved = B * Hh * Ww * 64
         visited, occupied = window_work(tgt, window)
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ((3 * visited + 5 * occupied) / FP32_OPS_PER_S
-                  + 4 * occupied / FP64_OPS_PER_S) * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound_ms, bound_by, bytes_ms, ops_ms = matcher_bound(moved, visited, occupied, 9)
         say(f"window_match B={B} {Hh}x{Ww} window {window}: bit-equal to plain (sq, xyz, nrm), "
             f"{found.float().mean().item():.4f} of pixels matched | kernel {ms * 1e3:.2f} us, "
             "device " + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us")
@@ -438,10 +487,175 @@ def check_matcher(trainer, spec, scan, rng, card):
     err = max(err, require_equal("window_match 64x2250", out,
                                  window_match_plain(src, tgt, nrm, (5, 9))))
     ms = cuda_ms(lambda: window_match(src, tgt, nrm, (5, 9)), reps=10, inner=5)
+    plain_ms = cuda_ms(lambda: window_match_plain(src, tgt, nrm, (5, 9)), reps=5, inner=2)
+    dev_ms = profiled_device_ms(lambda: window_match(src, tgt, nrm, (5, 9)), MATCHER_KERNELS)
+    moved = 2250 * spec.height * 64
+    visited, occupied = window_work(tgt, (5, 9))
+    bound_ms, bound_by, bytes_ms, ops_ms = matcher_bound(moved, visited, occupied, 9)
     say(f"window_match B=1 64x2250 window (5, 9): bit-equal to plain, "
         f"{torch.isfinite(out[0]).float().mean().item():.4f} of pixels matched | kernel "
-        f"{ms * 1e3:.2f} us on {card}")
+        f"{ms * 1e3:.2f} us, device " + ("not measured" if dev_ms is None else
+                                          f"{dev_ms * 1e3:.2f} us")
+        + f", plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+        f"({moved} B: {bytes_ms * 1e3:.2f} us;"
+        f" {occupied} occupied candidates: {ops_ms * 1e3:.2f} us) on {card}")
     return timing, err
+
+
+def once_ms(fn) -> float:
+    """One call's time by CUDA events (for plain versions too slow to repeat)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def check_soft_matcher(trainer, rng, card):
+    """Phase 4d: the soft matcher at the train shapes."""
+    from delora_tpu_torch.ops.cuda.window_match import window_match_soft, window_match_soft_plain
+
+    sigma = RECIPE["soft_match_sigma"]
+    idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=trainer.device)
+    src, tgt, nrm = matcher_inputs(trainer.tables.image[idx], trainer.tables.normal_image[idx],
+                                   rng)
+    B, Hh, Ww, _ = src.shape
+    err, timing = 0.0, None
+    for window in ((5, 9), (9, 17)):
+        out = window_match_soft(src, tgt, nrm, window, sigma)
+        ref = window_match_soft_plain(src, tgt, nrm, window, sigma)
+        torch.cuda.synchronize()
+        require_equal(f"window_match_soft {window} best_sq", out[:1], ref[:1])
+        blend_err = max((a - b).abs().max().item() for a, b in zip(out[1:], ref[1:]))
+        differ = sum(int((a != b).sum().item()) for a, b in zip(out[1:], ref[1:]))
+        for a, b in zip(out[1:], ref[1:]):
+            if not torch.allclose(a, b, rtol=SOFT_RTOL, atol=SOFT_ATOL):
+                raise RuntimeError(f"window_match_soft {window}: blend differs from its plain "
+                                   f"version by {blend_err} (rtol {SOFT_RTOL}, atol {SOFT_ATOL})")
+        err = max(err, blend_err)
+        found = torch.isfinite(ref[0])
+        ms = cuda_ms(lambda: window_match_soft(src, tgt, nrm, window, sigma))
+        plain_ms = cuda_ms(lambda: window_match_soft_plain(src, tgt, nrm, window, sigma), reps=3,
+                           inner=2)
+        dev_ms = profiled_device_ms(lambda: window_match_soft(src, tgt, nrm, window, sigma),
+                                    SOFT_KERNELS)
+        # Bytes as the hard matcher's; per occupied candidate beside the
+        # distance: the exponent's product, the exp, seven products and seven
+        # sums, the minimum (17 more than the hard branch's 9).
+        moved = B * Hh * Ww * 64
+        visited, occupied = window_work(tgt, window)
+        bound_ms, bound_by, bytes_ms, ops_ms = matcher_bound(moved, visited, occupied, 26)
+        say(f"window_match_soft sigma {sigma} B={B} {Hh}x{Ww} window {window}: best_sq and misses "
+            f"bit-equal to plain, blends max abs diff {blend_err:.3e} ({differ} of "
+            f"{2 * out[1].numel()} values not bit-equal; limit rtol {SOFT_RTOL} atol {SOFT_ATOL}), "
+            f"{found.float().mean().item():.4f} of pixels matched | kernel {ms * 1e3:.2f} us, "
+            "device " + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us")
+            + f", plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+            f"({moved} B: {bytes_ms * 1e3:.2f} us; {visited} candidates visited, {occupied} "
+            f"occupied: {ops_ms * 1e3:.2f} us) on {card}")
+        if window == (5, 9):
+            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                          bound_by=bound_by, device_ms=dev_ms)
+    return timing, err
+
+
+def check_index_matcher(trainer, spec, card):
+    """Phase 4e: the reverse direction's index search at the train shape:
+    the target images' pixels against a warped-source image and its
+    occupancy plane."""
+    from delora_tpu_torch.ops.cuda.window_match import (
+        window_match_indices,
+        window_match_indices_plain,
+    )
+    from delora_tpu_torch.ops.projection import project_image_packed_batch
+
+    pos, valid, vals = warped_survivors(trainer)
+    payload = torch.cat([pos, vals[..., 3:7]], -1).contiguous()    # warped xyz, normal, 1
+    wimage = project_image_packed_batch(pos, valid, spec, values=payload, append_range=False)
+    idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=trainer.device)
+    query = trainer.tables.image[idx][..., 0:3]
+    args = (query, wimage[..., 0:3], wimage[..., 6], (5, 9))
+    out = window_match_indices(*args)
+    ref = window_match_indices_plain(*args)
+    torch.cuda.synchronize()
+    err = require_equal("window_match_indices", out, ref)
+    B, Hh, Ww, _ = query.shape
+    ms = cuda_ms(lambda: window_match_indices(*args))
+    plain_ms = cuda_ms(lambda: window_match_indices_plain(*args), reps=5, inner=2)
+    dev_ms = profiled_device_ms(lambda: window_match_indices(*args), MATCHER_KERNELS)
+    # Read the query xyz, the candidate xyz and occupancy (28 B a pixel),
+    # write the offset and squared distance (8 B).
+    moved = B * Hh * Ww * 36
+    visited, occupied = window_work(wimage[..., 0:3], (5, 9))
+    bound_ms, bound_by, bytes_ms, ops_ms = matcher_bound(moved, visited, occupied, 9)
+    found = torch.isfinite(ref[1]) & (query != 0).any(-1)
+    say(f"window_match_indices B={B} {Hh}x{Ww} window (5, 9), occupancy plane: bit-equal to "
+        f"plain (k, sq), {found.float().mean().item():.4f} of pixels matched | kernel "
+        f"{ms * 1e3:.2f} us, device " + ("not measured" if dev_ms is None else
+                                          f"{dev_ms * 1e3:.2f} us")
+        + f", plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+        f"({moved} B: {bytes_ms * 1e3:.2f} us; {occupied} occupied candidates: "
+        f"{ops_ms * 1e3:.2f} us) on {card}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                device_ms=dev_ms), err
+
+
+def nn_bound(src, valid_tgt):
+    """(bound ms, what sets it, pairs): 8 float32 operations a (source,
+    valid target) pair of the same batch; bytes: sources, targets and their
+    flags read once, indices and distances written once."""
+    B, S, _ = src.shape
+    T = valid_tgt.shape[1]
+    pairs = S * int(valid_tgt.sum().item())
+    ops_ms = 8 * pairs / FP32_OPS_PER_S * 1e3
+    bytes_ms = (B * S * 12 + B * T * 13 + B * S * 8) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), pairs
+
+
+def check_nn_search(trainer, scans, normals, spec, rng, card):
+    """Phase 4f: the exact 1-NN at the brute path's shape: the train batch's
+    warped survivors against the padded target clouds and their survivor
+    masks; then a near-tie cloud with duplicated targets."""
+    from delora_tpu_torch.ops.cuda.nn_search import nn_search, nn_search_plain
+    from delora_tpu_torch.ops.projection import project_scan_batch
+    from delora_tpu_torch.training.trainer import padded_scan
+
+    dev = trainer.device
+    pos, _, _ = warped_survivors(trainer)
+    padded = [padded_scan(scans[i], normals[i], N) for i in trainer.pair_target[:TRAIN_B]]
+    pts = torch.from_numpy(np.stack([p for p, _, _ in padded])).to(dev)
+    mask = torch.from_numpy(np.stack([m for _, _, m in padded])).to(dev)
+    survivor = project_scan_batch(pts, mask, spec).survivor
+    args = (pos, pts, survivor)
+    out = nn_search(*args)
+    ref = []
+    plain_ms = once_ms(lambda: ref.extend(nn_search_plain(*args)))
+    err = require_equal("nn_search (warped survivors)", out, ref)
+    # A near-tie cloud: targets with 10% exact duplicates and points 1e-4
+    # nearer on their rays, a third valid; sources near random targets.
+    B, S, _ = pos.shape
+    tie_t = torch.from_numpy(np.stack([near_tie_cloud(rng, N, spec) for _ in range(B)])).to(dev)
+    tie_v = torch.from_numpy(rng.random((B, N)) < 0.35).to(dev)
+    pick = torch.from_numpy(rng.integers(0, N, (B, S))).to(dev)
+    noise = torch.from_numpy(rng.normal(0, 0.01, (B, S, 3)).astype(np.float32)).to(dev)
+    tie_s = (torch.gather(tie_t, 1, pick[..., None].expand(-1, -1, 3)) + noise).contiguous()
+    tie_args = (tie_s, tie_t, tie_v)
+    err = max(err, require_equal("nn_search (near-tie cloud)", nn_search(*tie_args),
+                                 nn_search_plain(*tie_args)))
+    ms = cuda_ms(lambda: nn_search(*args), reps=5, inner=3)
+    dev_ms = profiled_device_ms(lambda: nn_search(*args), NN_KERNELS, calls=5)
+    bound_ms, bound_by, pairs = nn_bound(pos, survivor)
+    say(f"nn_search B={B} S={S} T={N}: bit-equal to plain (idx, sq) on the warped survivors "
+        f"({survivor.sum(1).tolist()} valid targets) and on a near-tie cloud | kernel "
+        f"{ms * 1e3:.2f} us, device " + ("not measured" if dev_ms is None else
+                                          f"{dev_ms * 1e3:.2f} us")
+        + f", plain {plain_ms * 1e3:.2f} us (one call), bound {bound_ms * 1e3:.2f} us by "
+        f"{bound_by} ({pairs} pairs x 8 operations) on {card}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                device_ms=dev_ms), err
 
 
 def run_serving(config, scans, spec, card):
@@ -540,67 +754,82 @@ def first_batch(trainer):
                          torch.as_tensor(trainer.pair_source[:TRAIN_B], device=trainer.device))
 
 
-def check_steps(trainer, epoch):
-    """Every step of the last epoch: metrics finite, no overflowing tile."""
+def check_steps(trainer, epoch, positive=()):
+    """Every step of the last epoch: metrics finite, no overflowing tile,
+    and the ``positive`` metrics > 0."""
     for key, values in trainer.last_steps.items():
         if not np.isfinite(values).all():
             raise RuntimeError(f"epoch {epoch}: metric {key} not finite: {values}")
     if (trainer.last_steps["placement_overflow_tiles"] != 0).any():
         raise RuntimeError(f"epoch {epoch}: placement overflow "
                            f"{trainer.last_steps['placement_overflow_tiles']}")
+    for key in positive:
+        if not (trainer.last_steps[key] > 0).all():
+            raise RuntimeError(f"epoch {epoch}: {key} not > 0: {trainer.last_steps[key]}")
 
 
-def run_training(trainer, card):
-    """Phase 6, the trainer's steps. -> (launches of placement and matcher,
-    steady-state pairs/s)."""
-    from delora_tpu_torch.ops.cuda.placement import placement
-    from delora_tpu_torch.ops.cuda.window_match import window_match
-
-    placement.launches = 0
-    window_match.launches = 0
+def run_training(trainer, card, label, epochs, per_step, positive=()):
+    """Train ``epochs`` epochs (2 supervised, then unsupervised) and check
+    the kernel launches: ``per_step`` maps a name to (wrapper, launches a
+    step). -> (launches by name, steady-state pairs/s)."""
+    for wrapper, _ in per_step.values():
+        wrapper.launches = 0
     steps, history = 0, []
-    # Two supervised epochs (2 steps each: 23 pairs, B = 8), then unsupervised.
     # The warmup's own switch (epoch loss < 1e-2) would take hundreds of steps
-    # at lr 1e-5 from random weights, so the run switches after 4 steps.
-    for epoch in range(12):
+    # at lr 1e-5 from random weights, so the run switches after 2 epochs.
+    for epoch in range(epochs):
         if epoch == 2:
             trainer.supervised = False
         metrics = trainer.train_epoch(epoch)
-        check_steps(trainer, epoch)
+        check_steps(trainer, epoch, positive)
         steps += metrics["steps"]
         history.append(metrics)
-        say(f"train epoch {epoch} ({'supervised' if epoch < 2 else 'unsupervised'}): "
+        say(f"{label} epoch {epoch} ({'supervised' if epoch < 2 else 'unsupervised'}): "
             f"{metrics['steps']} steps, loss {metrics['loss']:.6f}, loss_pc "
             f"{metrics['loss_pc']:.6f}, po2pl {metrics['loss_po2pl']:.6f}, pl2pl "
-            f"{metrics['loss_pl2pl']:.6f}, pairs {metrics['num_po2pl_pairs']:.1f}, visible "
-            f"{metrics['visible_pixels']:.1f}, grad_norm {metrics['grad_norm']:.4e}, "
-            f"{metrics['epoch_seconds'] * 1e3:.1f} ms")
-    launches = (placement.launches, window_match.launches)
-    if launches != (steps, steps):
-        raise RuntimeError(f"kernel launches {launches} for {steps} steps (expected one each)")
+            f"{metrics['loss_pl2pl']:.6f}, rev {metrics['loss_po2pl_rev']:.6f}, pairs "
+            f"{metrics['num_po2pl_pairs']:.1f}, visible {metrics['visible_pixels']:.1f}, "
+            f"grad_norm {metrics['grad_norm']:.4e}, {metrics['epoch_seconds'] * 1e3:.1f} ms")
+    launches = {name: wrapper.launches for name, (wrapper, _) in per_step.items()}
+    expected = {name: k * steps for name, (_, k) in per_step.items()}
+    if launches != expected:
+        raise RuntimeError(f"{label}: kernel launches {launches} for {steps} steps, expected "
+                           f"{expected}")
     steady = history[3:]
     pairs_per_s = (sum(h["steps"] for h in steady) * trainer.batch_size
                    / sum(h["epoch_seconds"] for h in steady))
-    say(f"training bf16 B={trainer.batch_size}: {steps} steps (4 supervised), every step's "
-        f"metrics finite, overflow tiles 0, launches placement {launches[0]} and matcher "
-        f"{launches[1]} for {steps} steps | steady state (epochs 3-11, host clock, one "
-        f"readback an epoch) {pairs_per_s:.1f} pairs/s on {card}")
+    say(f"{label} B={trainer.batch_size}: {steps} steps (4 supervised), every step's metrics "
+        f"finite{''.join(f', {k} > 0' for k in positive)}, overflow tiles 0, launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" for {steps} steps | steady "
+        f"state (epochs 3-{epochs - 1}, host clock, one readback an epoch) {pairs_per_s:.1f} "
+        f"pairs/s on {card}")
     return launches, pairs_per_s
 
 
-def step_split(trainer, card):
+def model_images(trainer, batch):
+    """The model's two input images of a batch (projected on the raw feed)."""
+    from delora_tpu_torch.ops.projection import project_compact_exact_batch, project_scan_batch
+
+    if trainer.feed == "full":
+        return batch.image_1, batch.image_2
+    return (project_scan_batch(batch.points_1, batch.valid_1, trainer.spec).image,
+            project_compact_exact_batch(batch.points_2, batch.valid_2, trainer.spec).image)
+
+
+def step_split(trainer, card, label):
     """The device time of a train step by part, and the card's idle share."""
-    from delora_tpu_torch.training.step import StepConfig, forward_pose, train_step
+    from delora_tpu_torch.training.step import StepConfig, forward_pose
 
     cfg = StepConfig.from_config(trainer.config, trainer.dataset, supervised=False)
-    n = TRAIN_B
     batch = first_batch(trainer)
-    model, opt = trainer.model, trainer.optimizer
-    times, wall_ms = device_kernel_times(lambda: train_step(model, opt, batch, cfg), calls=5)
+    model = trainer.model
+    times, wall_ms = device_kernel_times(lambda: trainer.step(batch, cfg), calls=5)
+    image_1, image_2 = model_images(trainer, batch)
 
     def fwd_bwd():
         model.zero_grad(set_to_none=True)
-        forward_pose(model, batch.image_1, batch.image_2).square().sum().backward()
+        forward_pose(model, image_1, image_2,
+                     generator=trainer.dropout_generator).square().sum().backward()
 
     fb_times, _ = device_kernel_times(fwd_bwd, calls=5)
     total = sum(times.values())
@@ -608,39 +837,42 @@ def step_split(trainer, card):
     def part(names):
         return sum(v for k, v in times.items() if any(s in k.lower() for s in names))
 
-    split = {"forward+backward": sum(fb_times.values()), "matcher": part(MATCHER_KERNELS),
+    split = {"forward+backward": sum(fb_times.values()),
+             "matcher": part(MATCHER_KERNELS + SOFT_KERNELS), "1-NN": part(NN_KERNELS),
              "placement": part(tuple(k.lower() for k in PLACEMENT_KERNELS)),
              "optimizer": part(OPTIMIZER_KERNELS)}
     split["rest"] = total - sum(split.values())
     top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
-    say(f"training step device time (torch.profiler, 5 steps, B={n}): total {total:.3f} ms of "
-        f"{wall_ms:.3f} ms wall, idle share {1 - total / wall_ms:.3f} | "
+    say(f"{label} step device time (torch.profiler, 5 steps, B={trainer.batch_size}): total "
+        f"{total:.3f} ms of {wall_ms:.3f} ms wall, idle share {1 - total / wall_ms:.3f} | "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f" on {card}")
-    say("training step largest kernels: " + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    say(f"{label} step largest kernels: " + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
     return split, total, wall_ms
 
 
-def check_fp32_step(trainer):
-    """One fp32 step (TF32 off) on the card against the CPU's plain path."""
+def check_fp32_step(trainer, label, overrides=None):
+    """One fp32 step (TF32 off) on the card against the CPU's plain path,
+    on the trainer's first batch and fresh seeded params."""
     from delora_tpu_torch.config import default_config
     from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
     from delora_tpu_torch.training.state import make_optimizer
-    from delora_tpu_torch.training.step import FullyCachedBatch, StepConfig, train_step
+    from delora_tpu_torch.training.step import StepConfig, train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg32 = default_config({"compute_dtype": "float32"}, base=trainer.config)
+    cfg32 = default_config({"compute_dtype": "float32", **(overrides or {})},
+                           base=trainer.config)
     step_cfg = StepConfig.from_config(cfg32, supervised=False)
     model = OdometryModel(ModelConfig.from_config(cfg32),
                           torch.Generator().manual_seed(SEED + 1)).to(trainer.device)
     model_cpu = copy.deepcopy(model).cpu()
     batch = first_batch(trainer)
-    batch_cpu = FullyCachedBatch(*(t.cpu() for t in batch))
-    out = train_step(model, make_optimizer(cfg32, model.parameters(), TRAIN_B)[0], batch,
-                     step_cfg)
+    batch_cpu = type(batch)(*(t.cpu() for t in batch))
+    out = train_step(model, make_optimizer(cfg32, model.parameters(), trainer.batch_size)[0],
+                     batch, step_cfg)
     t0 = time.perf_counter()
-    ref = train_step(model_cpu, make_optimizer(cfg32, model_cpu.parameters(), TRAIN_B)[0],
-                     batch_cpu, step_cfg)
+    ref = train_step(model_cpu, make_optimizer(cfg32, model_cpu.parameters(),
+                                               trainer.batch_size)[0], batch_cpu, step_cfg)
     cpu_s = time.perf_counter() - t0
     worst = 0.0
     for key, value in ref.items():
@@ -648,12 +880,13 @@ def check_fp32_step(trainer):
         rel = abs(a - b) / max(abs(b), 1e-6)
         worst = max(worst, rel)
         if rel > FP32_RTOL:
-            raise RuntimeError(f"fp32 step: {key} card {a} vs CPU {b} (rel {rel:.2e} > "
+            raise RuntimeError(f"{label} fp32 step: {key} card {a} vs CPU {b} (rel {rel:.2e} > "
                                f"{FP32_RTOL})")
-    say(f"training fp32 (TF32 off) card vs CPU step on the same batch and params: loss "
-        f"{float(out['loss']):.6f} vs {float(ref['loss']):.6f}, grad_norm "
+    say(f"{label} fp32 (TF32 off) card vs CPU step on the same batch (B={trainer.batch_size}) "
+        f"and params: loss {float(out['loss']):.6f} vs {float(ref['loss']):.6f}, grad_norm "
         f"{float(out['grad_norm']):.6f} vs {float(ref['grad_norm']):.6f}, pairs "
-        f"{float(out['num_po2pl_pairs']):.1f} vs {float(ref['num_po2pl_pairs']):.1f}; worst "
+        f"{float(out['num_po2pl_pairs']):.1f} vs {float(ref['num_po2pl_pairs']):.1f}, rev "
+        f"{float(out['loss_po2pl_rev']):.6f} vs {float(ref['loss_po2pl_rev']):.6f}; worst "
         f"relative difference over {len(ref)} values {worst:.2e} (limit {FP32_RTOL}); CPU step "
         f"{cpu_s:.1f} s")
 
@@ -689,11 +922,42 @@ def check_loss_falls(trainer):
         f"batch: loss_pc " + " ".join(f"{x:.4f}" for x in losses))
 
 
+def check_ema(trainer, card):
+    """The recipe's EMA weights are finite and apart from the live ones, and
+    the deploy model gives a finite, rigid pose on one pair."""
+    from delora_tpu_torch.training.step import forward_pose
+
+    deployed = trainer.deploy_model()
+    live = dict(trainer.model.named_parameters())
+    apart = 0
+    for name, value in deployed.named_parameters():
+        if not torch.isfinite(value).all():
+            raise RuntimeError(f"EMA weight {name} not finite")
+        apart += int(not torch.equal(value, live[name]))
+    if apart == 0 or deployed.training:
+        raise RuntimeError("the deploy model is the live model")
+    batch = first_batch(trainer)
+    with torch.no_grad():
+        T = forward_pose(deployed, batch.image_1[:1], batch.image_2[:1])[0].cpu().numpy()
+    check_rigid(T)
+    drift = max((v - live[k]).abs().max().item() for k, v in deployed.named_parameters())
+    say(f"recipe EMA: {apart} of {len(live)} weight tensors apart from the live ones (max abs "
+        f"{drift:.3e}), all finite; the deploy model's pose on one pair is finite and rigid "
+        f"(translation {np.round(T[:3, 3], 4).tolist()}) on {card}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
     from delora_tpu_torch.config import default_config
     from delora_tpu_torch.ops.cuda import build as cuda_build
+    from delora_tpu_torch.ops.cuda.nn_search import nn_search
+    from delora_tpu_torch.ops.cuda.placement import placement
+    from delora_tpu_torch.ops.cuda.window_match import (
+        window_match,
+        window_match_indices,
+        window_match_soft,
+    )
     from delora_tpu_torch.ops.projection import ProjectionSpec
     from delora_tpu_torch.training.trainer import Trainer
 
@@ -703,9 +967,9 @@ def main() -> None:
         f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
-    builds = cuda_build.build_all(["placement", "window_match"])
-    say(f"build: {time.perf_counter() - t0:.2f} s for both, one nvcc each started together "
-        f"({' '.join(cuda_build.NVCC_FLAGS)})")
+    builds = cuda_build.build_all(["placement", "window_match", "nn_search"])
+    say(f"build: {time.perf_counter() - t0:.2f} s for all three, one nvcc each started "
+        f"together ({' '.join(cuda_build.NVCC_FLAGS)})")
     for lib, (log, seconds) in builds.items():
         say(f"build {lib}: {seconds:.2f} s{'' if log else ' (already built)'}")
         for line in log.strip().splitlines():
@@ -716,12 +980,13 @@ def main() -> None:
     scans, normals = drive(24, rng)
     say(f"drive: {len(scans)} ray-cast scans, {min(map(len, scans))}-{max(map(len, scans))} "
         f"points each, analytic normals, {time.perf_counter() - t0:.1f} s")
+    drive_scans = [list(zip(scans, normals))]
 
     config = default_config()
     spec = ProjectionSpec.from_config(config)
     train_config = default_config({"batch_size": TRAIN_B})
     t0 = time.perf_counter()
-    trainer = Trainer(train_config, [list(zip(scans, normals))], device="cuda",
+    trainer = Trainer(train_config, drive_scans, device="cuda",
                       generator=torch.Generator().manual_seed(SEED))
     n_params = sum(p.numel() for p in trainer.model.parameters())
     say(f"trainer: {len(scans)} scans' artifacts on the card as tables, {trainer.num_pairs} "
@@ -730,12 +995,48 @@ def main() -> None:
     exact, err_exact = check_exact_placement(spec, rng, card)
     packed, err_packed = check_packed_placement(trainer, spec, rng, card)
     matcher, err_matcher = check_matcher(trainer, spec, scans[0], rng, card)
+    soft, err_soft = check_soft_matcher(trainer, rng, card)
+    index, err_index = check_index_matcher(trainer, spec, card)
+    nn, err_nn = check_nn_search(trainer, scans, normals, spec, rng, card)
 
     serving_launches = run_serving(config, scans[:12], spec, card)
-    (packed_launches, matcher_launches), _ = run_training(trainer, card)
-    step_split(trainer, card)
-    check_fp32_step(trainer)
+    main_path, _ = run_training(trainer, card, "training", 12, {
+        "placement": (placement, 1), "window_match": (window_match, 1)})
+    step_split(trainer, card, "training")
+    check_fp32_step(trainer, "training")
     check_loss_falls(trainer)
+
+    # Phase 7: the quality recipe on the fully-cached feed.
+    recipe = Trainer(default_config({"batch_size": TRAIN_B, **RECIPE}), drive_scans,
+                     device="cuda", generator=torch.Generator().manual_seed(SEED + 3))
+    say(f"recipe: {RECIPE}, feed {recipe.feed}, B={TRAIN_B}, bf16")
+    recipe_launches, _ = run_training(recipe, card, "recipe", 8, {
+        "window_match_soft": (window_match_soft, 1),
+        "window_match_index": (window_match_indices, 1),
+        "placement": (placement, 1), "window_match": (window_match, 0)},
+        positive=("loss_po2pl_rev",))
+    step_split(recipe, card, "recipe")
+    check_ema(recipe, card)
+    check_fp32_step(recipe, "recipe", {"use_dropout": False})
+    del recipe
+
+    # Phase 8: brute correspondence on the raw feed.
+    brute = Trainer(default_config({"batch_size": TRAIN_B, "correspondence": "brute"}),
+                    drive_scans, device="cuda", generator=torch.Generator().manual_seed(SEED + 4))
+    say(f"brute: feed {brute.feed}, tables {tuple(brute.tables[0].shape)} padded points, "
+        f"B={TRAIN_B}, bf16")
+    brute_launches, _ = run_training(brute, card, "brute", 6, {
+        "nn_search": (nn_search, 1), "placement": (placement, 2),
+        "window_match": (window_match, 0)})
+    step_split(brute, card, "brute")
+    del brute
+    small = Trainer(default_config({"batch_size": BRUTE_CHECK_B, "correspondence": "brute",
+                                    "kitti": {"max_points": BRUTE_CHECK_POINTS}}),
+                    [drive_scans[0][:BRUTE_CHECK_B + 1]], device="cuda",
+                    generator=torch.Generator().manual_seed(SEED + 5))
+    say(f"brute fp32 check on a reduced cloud: max_points {BRUTE_CHECK_POINTS} (of up to "
+        f"{max(map(len, scans))} a scan), B={BRUTE_CHECK_B}")
+    check_fp32_step(small, "brute")
 
     def row(name_, source, replaces, launches, err, t):
         return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -744,19 +1045,53 @@ def main() -> None:
                 "bound_by": t.get("bound_by", "bytes"),
                 "library_ms": t["library_ms"]}
 
+    matcher_src = "delora_tpu_torch/csrc/window_match.cu"
     print(card, flush=True)
     print(json.dumps({"kernels": [
         row("placement", "delora_tpu_torch/csrc/placement.cu",
             "delora_tpu/ops/pallas/placement.py:72", serving_launches, err_exact, exact),
         row("placement_packed", "delora_tpu_torch/csrc/placement.cu",
-            "delora_tpu/ops/pallas/placement.py:72", packed_launches, err_packed, packed),
-        row("window_match", "delora_tpu_torch/csrc/window_match.cu",
-            "delora_tpu/ops/pallas/window_match.py:249", matcher_launches, err_matcher,
-            matcher),
+            "delora_tpu/ops/pallas/placement.py:72", main_path["placement"], err_packed,
+            packed),
+        row("window_match", matcher_src, "delora_tpu/ops/pallas/window_match.py:249",
+            main_path["window_match"], err_matcher, matcher),
+        row("window_match_soft", matcher_src, "delora_tpu/ops/pallas/window_match.py:249",
+            recipe_launches["window_match_soft"], err_soft, soft),
+        row("window_match_index", matcher_src, "delora_tpu/ops/correspondence.py:495",
+            recipe_launches["window_match_index"], err_index, index),
+        row("nn_search", "delora_tpu_torch/csrc/nn_search.cu",
+            "delora_tpu/ops/pallas/nn_search.py:172", brute_launches["nn_search"], err_nn, nn),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+def train_rate(epochs: int) -> None:
+    """``--train-rate EPOCHS`` (see the module docstring)."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.training.trainer import Trainer
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
+    card = card_line()
+    scans, normals = drive(24, np.random.default_rng(SEED))
+    trainer = Trainer(default_config({"batch_size": TRAIN_B}), [list(zip(scans, normals))],
+                      device="cuda", generator=torch.Generator().manual_seed(SEED))
+    rates = []
+    for epoch in range(epochs + 2):
+        trainer.supervised = epoch < 2
+        metrics = trainer.train_epoch(epoch)
+        check_steps(trainer, epoch)
+        if epoch >= 3:
+            rates.append(metrics["scan_pairs_per_sec"])
+    q1, med, q3 = statistics.quantiles(rates, n=4)
+    say(f"train-rate B={TRAIN_B}, main path, {len(rates)} epochs of {metrics['steps']} steps "
+        f"(host clock, one readback an epoch): median {med:.1f} pairs/s, quartiles {q1:.1f}-"
+        f"{q3:.1f} on {card}")
+    print(json.dumps({"pairs_per_s": rates}), flush=True)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-rate"]:
+        sys.exit(train_rate(int(sys.argv[2])))
     sys.exit(main())

@@ -10,8 +10,14 @@ are identical. Keys the YAML leaves commented out (``lr_decay_steps``,
 are used.
 
 Settings whose code is not ported yet raise in validation rather than run
-silently: soft matching, reverse po2pl, parameter EMA, dropout, augmentation
-and any correspondence other than ``image``.
+silently: augmentation, projective correspondence, ``fused_adam`` and the
+cached-target feed (target cached, source raw). Soft matching, reverse po2pl,
+the parameter EMA, dropout and brute correspondence run.
+
+``use_pallas_nn`` is carried for parity and read by nothing: the reference
+picks between two routes to the same exact 1-NN with it (its Pallas kernel or
+an XLA formula), and the port's brute search runs its one 1-NN kernel on the
+card whatever it says.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ _DEFAULTS: Dict[str, Any] = {
     "compute_dtype": "bfloat16",
     "unsupervised_at_start": False,
     "steps_per_dispatch": 32,
+    "cache_target_projections": True,
+    "cache_source_projections": True,
     # hyperparameters.yaml: training
     "batch_size": 32,
     "learning_rate": 0.00001,
@@ -58,6 +66,7 @@ _DEFAULTS: Dict[str, Any] = {
     "lambda_pl2pl": 1.0,
     "normalization_scaling": False,
     "lambda_reverse_po2pl": 0.0,
+    "use_pallas_nn": False,
     # hyperparameters.yaml: model
     "activation_fct": "tanh",
     "resnet_outputs": 1000,
@@ -118,12 +127,22 @@ def default_config(
 # Settings whose code the port does not have yet: (key, value that is
 # ported, what the other values would turn on).
 _NOT_PORTED = (
-    ("soft_match_sigma", 0.0, "soft window matching"),
-    ("lambda_reverse_po2pl", 0.0, "the reverse point-to-plane term"),
-    ("ema_decay", 0.0, "the parameter EMA"),
-    ("use_dropout", False, "dropout"),
     ("random_point_cloud_rotations", False, "augmentation"),
+    ("fused_adam", False, "the flattened Adam update"),
 )
+_CORRESPONDENCE = ("image", "brute")
+
+
+def training_feed(config: Mapping[str, Any]) -> str:
+    """The trainer's feed, chosen as the reference's trainer chooses it
+    (training/trainer.py:67-90): "full" (both scans' projections cached)
+    when the target caches are on and the matcher works in image space,
+    "raw" (padded clouds, projected in the step) when the correspondence is
+    brute or the target cache is off, else "cached" (target cached, source
+    raw), which is not ported."""
+    if not config["cache_target_projections"] or config["correspondence"] == "brute":
+        return "raw"
+    return "full" if config["cache_source_projections"] else "cached"
 
 
 def validate(config: Mapping[str, Any]) -> None:
@@ -133,15 +152,24 @@ def validate(config: Mapping[str, Any]) -> None:
         raise ValueError('activation_fct must be "relu" or "tanh"')
     if config["normal_loss"] not in ("squared", "linear"):
         raise ValueError('normal_loss must be "squared" or "linear"')
-    if config["correspondence"] != "image":
+    if config["correspondence"] not in _CORRESPONDENCE:
         raise NotImplementedError(
             f"correspondence {config['correspondence']!r} is not ported; the port "
-            'has the image-space matcher only (correspondence: "image")')
+            f"has {' and '.join(_CORRESPONDENCE)}")
     for key, ported, what in _NOT_PORTED:
-        if config[key] != ported:
+        if config.get(key, ported) != ported:
             raise NotImplementedError(
                 f"{key}={config[key]!r} turns on {what}, which is not ported yet "
                 f"(the port runs {key}={ported!r})")
+    if training_feed(config) == "cached":
+        raise NotImplementedError(
+            "the cached-target feed (cache_target_projections: true, "
+            "cache_source_projections: false) is not ported; the port has the fully "
+            "cached and the raw feeds")
+    if config["soft_match_sigma"] < 0.0 or config["lambda_reverse_po2pl"] < 0.0:
+        raise ValueError("soft_match_sigma and lambda_reverse_po2pl must be >= 0")
+    if not 0.0 <= config["ema_decay"] < 1.0:
+        raise ValueError(f"ema_decay must be in [0, 1), got {config['ema_decay']}")
     if config["lr_schedule"] not in ("constant", "cosine"):
         raise ValueError('lr_schedule must be "constant" or "cosine"')
     window = config["projective_window"]

@@ -8,7 +8,8 @@ one shared 512-512-256-64-7 MLP (rotation first). Quaternions are (x, y, z, w),
 normalized per row or over the whole tensor.
 
 ``compute_dtype`` bfloat16 runs the network under ``torch.autocast``;
-parameters stay float32 and the outputs come out float32.
+parameters stay float32 and the outputs come out float32. ``use_dropout``
+turns on the backbone's dropout in training mode (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ class ModelConfig(NamedTuple):
     compute_dtype: torch.dtype = torch.float32
     in_channels_per_image: int = 4
     stage_width_multipliers: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+    use_dropout: bool = False
 
     @classmethod
     def from_config(cls, config):
@@ -55,6 +57,7 @@ class ModelConfig(NamedTuple):
             stage_width_multipliers=tuple(
                 float(m) for m in config.get(
                     "resnet_stage_width_multipliers", (1.0, 1.0, 1.0, 1.0))),
+            use_dropout=bool(config.get("use_dropout", False)),
         )
 
 
@@ -86,7 +89,8 @@ class OdometryModel(nn.Module):
             in_channels = 2 * chans[-1]
         self.resnet = CircularResNet(
             in_channels, cfg.resnet_outputs, cfg.blocks_per_stage,
-            cfg.channel_divisor, cfg.stage_width_multipliers, cfg.activation)
+            cfg.channel_divisor, cfg.stage_width_multipliers, cfg.activation,
+            cfg.use_dropout)
         if cfg.use_single_mlp:
             self.fully_connected_rot_trans = _mlp(
                 cfg.resnet_outputs, (512, 512, 256, 64, 7), cfg.activation)
@@ -110,8 +114,11 @@ class OdometryModel(nn.Module):
             image = act(conv(image))
         return image
 
-    def forward(self, image_1: torch.Tensor, image_2: torch.Tensor):
-        """image_*: [B, H, W, C] -> (translation [B, 3], quat_xyzw [B, 4]), f32."""
+    def forward(self, image_1: torch.Tensor, image_2: torch.Tensor,
+                generator: Optional[torch.Generator] = None, deterministic: bool = False):
+        """image_*: [B, H, W, C] -> (translation [B, 3], quat_xyzw [B, 4]), f32.
+        ``generator`` draws the dropout masks in training mode;
+        ``deterministic`` (the reference's flag) turns dropout off."""
         cfg = self.cfg
         # Contiguous NCHW: the CPU convolution's backward crashes on the
         # channels-last strides a bare permute leaves.
@@ -123,7 +130,7 @@ class OdometryModel(nn.Module):
                 x = torch.cat([self._extract(x1), self._extract(x2)], dim=1)
             else:
                 x = torch.cat([x1, x2], dim=1)
-            feat = self.resnet(x)
+            feat = self.resnet(x, generator, deterministic)
             if cfg.use_single_mlp:
                 out = self.fully_connected_rot_trans(feat)
                 rotation, translation = out[:, :4], out[:, 4:]

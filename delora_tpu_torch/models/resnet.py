@@ -5,12 +5,20 @@ ResNet-18 without normalisation layers, with the azimuth (W) wrapped before
 every conv, anisotropic strides (1,2)/(1,2)/(1,2)/(2,2) and tanh or relu.
 Module names follow the original DeLORA model (``conv1``,
 ``layer{L}.{B}.conv{1,2}``, ``downsample.0``, ``fc``).
+
+Dropout (``use_dropout``, off by default) is the reference's three Flax
+``nn.Dropout(0.2)`` sites: elementwise on the stem's input, one mask per
+(batch, channel) after stage 3 (``broadcast_dims=(1, 2)``), elementwise on the
+fc output. It runs only in training mode (``model.train()``) and where the
+forward's ``deterministic`` (the reference's flag) is false; ``model.eval()``
+turns it off as ``deterministic=True`` does. It draws its bits from the
+``torch.Generator`` the caller passes, never from the global RNG.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +49,20 @@ def linear_init_(layer: nn.Linear, generator: torch.Generator) -> None:
     with torch.no_grad():
         nn.init.uniform_(layer.weight, -bound, bound, generator=generator)
         nn.init.uniform_(layer.bias, -bound, bound, generator=generator)
+
+
+DROPOUT_RATE = 0.2
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            channels: bool = False) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: keep each element (or, with ``channels``, each
+    [batch, channel] plane of an NCHW tensor) with probability 1 - rate and
+    divide the survivors by 1 - rate; the rest are 0."""
+    keep = 1.0 - rate
+    shape = x.shape[:2] + (1,) * (x.dim() - 2) if channels else x.shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def pad_circular_w(x: torch.Tensor, pad_w: int = 1, pad_h: int = 1,
@@ -88,11 +110,9 @@ class BasicBlock(nn.Module):
 
 
 class CircularResNet(nn.Module):
-    """Stem, four stages, global mean and ``fc``; returns the fc output.
-
-    Dropout (``use_dropout``, off by default) is not ported yet; the config
-    refuses it, so training and serving both run the model without it.
-    """
+    """Stem, four stages, global mean and ``fc``; returns the fc output,
+    with dropout at the three sites of the module docstring when
+    ``use_dropout`` and in training mode."""
 
     STAGE_STRIDES = ((1, 1), (1, 2), (1, 2), (2, 2))
 
@@ -100,9 +120,10 @@ class CircularResNet(nn.Module):
                  blocks_per_stage: Sequence[int] = (2, 2, 2, 2),
                  channel_divisor: int = 1,
                  stage_width_multipliers: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
-                 activation: str = "tanh"):
+                 activation: str = "tanh", use_dropout: bool = False):
         super().__init__()
         self.act = activation_fn(activation)
+        self.use_dropout = use_dropout
         widths = [int(c * m / channel_divisor)
                   for c, m in zip((64, 128, 256, 512), stage_width_multipliers)]
         self.conv1 = ConvCirc(in_channels, widths[0], stride=(1, 2))
@@ -117,11 +138,23 @@ class CircularResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
         self.fc = nn.Linear(widths[3], num_outputs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, C, H, W] -> [B, num_outputs]."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = False) -> torch.Tensor:
+        """x: [B, C, H, W] -> [B, num_outputs]; ``generator`` draws the
+        dropout masks (needed when dropout is active: ``use_dropout``, training
+        mode and not ``deterministic``)."""
+        drop = self.use_dropout and self.training and not deterministic
+        if drop and generator is None:
+            raise ValueError("dropout in training mode needs a torch.Generator")
+        if drop:
+            x = dropout(x, DROPOUT_RATE, generator)
         x = self.act(self.conv1(x))
         # 3x3 max-pool, stride (1, 2): rows padded with -inf, azimuth wrapped.
         x = F.max_pool2d(pad_circular_w(x, 1, 1, -math.inf), 3, stride=(1, 2))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return self.fc(x.mean(dim=(2, 3)))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        if drop:
+            x = dropout(x, DROPOUT_RATE, generator, channels=True)
+        out = self.fc(self.layer4(x).mean(dim=(2, 3)))
+        return dropout(out, DROPOUT_RATE, generator) if drop else out
 

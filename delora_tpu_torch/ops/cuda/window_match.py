@@ -1,21 +1,40 @@
-"""Hard image-space window matcher: the kernel's wrapper and its plain version.
+"""Image-space window matcher: the kernel's wrappers and their plain versions.
 
-For each pixel of a warped-source xyz image, the nearest occupied target pixel
-in a ``wv x wu`` window around it: rows beyond the image are empty (not
-clamped), the azimuth wraps, offsets run dv-major and du-minor with strict
-``<`` (ties go to the first offset), and an unoccupied target pixel (xyz all
-zero) is +inf. Returns the winner's squared distance (+inf if none), target
-xyz and target normal (zeros if none). The plain version is the loop of
-``delora_tpu/ops/correspondence.py::image_space_correspondence_core``
-(hard branch, :270-292). The CUDA kernel is
-``delora_tpu_torch/csrc/window_match.cu``; it replaces the TPU kernels
-``delora_tpu/ops/pallas/window_match.py::window_match_pallas`` (hard branch)
-and ``_window_match_tiled``.
+For each pixel of a query xyz image, the occupied candidate pixels in a
+``wv x wu`` window around it: rows beyond the image are empty (not clamped),
+the azimuth wraps, offsets run dv-major and du-minor, and an unoccupied
+candidate is +inf. Three searches share that window:
+
+- :func:`window_match` (hard): the nearest candidate, strict ``<`` (ties go to
+  the first offset); its squared distance (+inf if none), xyz and normal
+  (zeros if none). The loop of
+  ``delora_tpu/ops/correspondence.py::image_space_correspondence_core``
+  (hard branch, :270-292).
+- :func:`window_match_indices`: the same argmin, returning the winner's offset
+  index ``k = dv * wu + du_idx`` (0 if none) and its squared distance, with
+  the candidates' occupancy read from a separate plane (> 0.5). The loop of
+  ``window_match_indices`` (:495-555), the reverse direction's search.
+- :func:`window_match_soft`: every occupied candidate weighs
+  ``w = exp(-sq / sigma^2)``, unnormalised; the blend ``sum(w x) / max(sum w,
+  1e-30)`` of xyz and of normals (not renormalised), and the window's
+  minimum squared distance, +inf where ``sum w < 1e-30``. The soft branch of
+  the core (:228-268). Every weight, product, sum and quotient of the blend
+  is flushed to zero where it is subnormal, as the reference's arithmetic is
+  (XLA on the CPU and the TPU flush subnormals; ``exp`` of less than about
+  -87.3 is 0 there): a weight that underflows past the smallest normal float
+  must not leave a tiny non-zero blended normal, which would count as "has a
+  normal" in the losses.
+
+A target candidate is occupied where its xyz is not all zero. The CUDA kernels
+are ``delora_tpu_torch/csrc/window_match.cu``; they replace the TPU kernels
+``delora_tpu/ops/pallas/window_match.py::window_match_pallas`` (hard and
+soft branches) and ``_window_match_tiled``.
 
 Inputs are ``[B, H, W, 3]`` float32 channels-last tensors; each may be a
 channel slice of a wider channels-last tensor (for example the xyz of a
-``[B, H, W, 7]`` image), read in place. Nothing here carries gradients: the
-search is detached, as in the reference.
+``[B, H, W, 7]`` image), read in place, and so may the ``[B, H, W]``
+occupancy plane. Nothing here carries gradients: the searches are detached,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -23,6 +42,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,23 +51,28 @@ from delora_tpu_torch.ops.cuda.build import load_library
 
 def _strides(t: torch.Tensor, name: str) -> Tuple[int, int]:
     """(batch, pixel) strides in floats of a ``[B, H, W, 3]`` view whose
-    channels are contiguous and whose pixels are evenly spaced."""
-    if t.stride(3) != 1 or t.stride(1) != t.shape[2] * t.stride(2):
+    channels are contiguous, or of a ``[B, H, W]`` plane, whose pixels are
+    evenly spaced."""
+    if (t.dim() == 4 and t.stride(3) != 1) or t.stride(1) != t.shape[2] * t.stride(2):
         raise ValueError(f"{name} must be channels-last with evenly spaced pixels, "
                          f"got strides {t.stride()}")
     return t.stride(0), t.stride(2)
 
 
-def _check(src, tgt_xyz, tgt_nrm, window):
-    for name, t in (("src", src), ("tgt_xyz", tgt_xyz), ("tgt_nrm", tgt_nrm)):
-        if t.dim() != 4 or t.shape[-1] != 3:
-            raise ValueError(f"{name} must be [B, H, W, 3], got {tuple(t.shape)}")
+def _check(window, src, **others):
+    for name, t in (("src", src), *others.items()):
+        shape = src.shape if t.dim() == 4 else src.shape[:3]
+        if t.dim() not in (3, 4) or (t.dim() == 4 and t.shape[-1] != 3):
+            raise ValueError(f"{name} must be [B, H, W, 3] (or [B, H, W] for an occupancy "
+                             f"plane), got {tuple(t.shape)}")
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if t.shape != src.shape:
-            raise ValueError(f"{name} {tuple(t.shape)} differs from src {tuple(src.shape)}")
+        if t.shape != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not fit src {tuple(src.shape)}")
         if t.device != src.device:
-            raise ValueError("src, tgt_xyz and tgt_nrm must lie on one device")
+            raise ValueError("the matcher's inputs must lie on one device")
+    if src.dim() != 4:
+        raise ValueError(f"src must be [B, H, W, 3], got {tuple(src.shape)}")
     wv, wu = window
     if wv < 1 or wu < 1 or wv % 2 == 0 or wu % 2 == 0:
         raise ValueError(f"window must be two odd sizes >= 1, got {window}")
@@ -55,46 +80,147 @@ def _check(src, tgt_xyz, tgt_nrm, window):
         raise ValueError("sizes must fit in int32")
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """fma(a, b, c) of float32 tensors: a * b is exact in float64, so one
-    float64 sum rounded to float32 is the fused result (but for
-    double-rounding cases, about one in 2**29; the kernel computes the same
-    float64 steps, so it agrees with this bit for bit)."""
-    return (a.double() * b.double() + c.double()).float()
+def _device(src: torch.Tensor, name: str) -> bool:
+    """True where the kernel runs (CUDA), False for the plain version (CPU)."""
+    if src.device.type == "cpu":
+        return False
+    if src.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {src.device}")
+    return True
+
+
+def fma_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fma(a, b, c) of float32 tensors, rounded once, as the card's fmaf.
+
+    a * b is exact in float64. The float64 sum is formed with round-to-odd
+    (its exact error by TwoSum decides the last bit), so the final rounding
+    to float32 is the single rounding of the exact a * b + c."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - c
+    err = (c - (s - bp)) + (p - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
 
 
 def squared_distance(d: torch.Tensor) -> torch.Tensor:
     """|d|^2 over the last axis as the reference's compiled matcher forms it:
-    fma(dz, dz, fma(dy, dy, dx * dx))."""
+    fma(dz, dz, fma(dy, dy, dx * dx)), each fma rounded once to float32."""
     x, y, z = d.unbind(-1)
-    return _fma(z, z, _fma(y, y, x * x))
+    return fma_exact(z, z, fma_exact(y, y, x * x))
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """x with its subnormal values replaced by +0."""
+    return torch.where(x.abs() < _TINY, 0.0, x)
+
+
+def inv_tau(sigma: float) -> float:
+    """1 / sigma^2 rounded to float32, as the reference's f32 loop uses it."""
+    return float(np.float32(1.0 / float(sigma) ** 2))
+
+
+def _window(pad: torch.Tensor, window, height: int):
+    """Yield (k, candidate image) over the window's offsets, dv-major: the
+    row-padded ``pad`` shifted so that ``cand[h, w] = pad[h + dv, w + du]``."""
+    wv, wu = window
+    bu = wu // 2
+    for dv in range(wv):
+        slab = pad[:, dv:dv + height]
+        for kk in range(wu):
+            yield dv * wu + kk, torch.roll(slab, bu - kk, dims=2)
+
+
+def _pad_rows(t: torch.Tensor, window) -> torch.Tensor:
+    a = window[0] // 2
+    return F.pad(t, (0, 0, 0, 0, a, a))                          # empty rows
+
+
+def _target_occupancy(tgt_xyz: torch.Tensor) -> torch.Tensor:
+    return (tgt_xyz != 0.0).any(-1).to(torch.float32)
+
+
+def window_match_indices_plain(src, cand_xyz, cand_occ, window):
+    """Plain version of :func:`window_match_indices`: the reference's loop over
+    the ``wv * wu`` shifted candidate images."""
+    _check(window, src, cand_xyz=cand_xyz, cand_occ=cand_occ)
+    B, H, W, _ = src.shape
+    pad = _pad_rows(torch.cat([cand_xyz, cand_occ[..., None]], dim=-1), window)
+    best_sq = torch.full((B, H, W), float("inf"), device=src.device)
+    best_k = torch.zeros((B, H, W), dtype=torch.int32, device=src.device)
+    for k, cand in _window(pad, window, H):
+        sq = squared_distance(cand[..., 0:3] - src)
+        sq = torch.where(cand[..., 3] > 0.5, sq, float("inf"))
+        better = sq < best_sq
+        best_sq = torch.where(better, sq, best_sq)
+        best_k = torch.where(better, k, best_k)
+    return best_k, best_sq
+
+
+def winner_pixel(best_k: torch.Tensor, window, height: int, width: int) -> torch.Tensor:
+    """The flat candidate pixel of each offset index ``[B, H, W]`` ->
+    ``[B, H * W]`` int64: row ``clip(h + k // wu - wv // 2, 0, H - 1)``,
+    column ``(w + k % wu - wu // 2) mod W`` (the reference's reconstruction,
+    training/step.py:341-346; rows of real winners are in range)."""
+    wv, wu = window
+    B = best_k.shape[0]
+    k = best_k.reshape(B, height * width).to(torch.int64)
+    p = torch.arange(height * width, device=best_k.device)
+    row = torch.clamp(p // width + k // wu - wv // 2, 0, height - 1)
+    col = torch.remainder(p % width + k % wu - wu // 2, width)
+    return row * width + col
+
+
+def _gather_pixels(img: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    B, H, W, C = img.shape
+    return torch.gather(img.reshape(B, H * W, C), 1, pix[..., None].expand(-1, -1, C))
 
 
 def window_match_plain(src, tgt_xyz, tgt_nrm, window):
-    """Plain PyTorch version: the reference's loop over the ``wv * wu``
-    shifted target images. -> (best_sq [B, H, W], best_xyz [B, H, W, 3],
-    best_nrm [B, H, W, 3])."""
-    _check(src, tgt_xyz, tgt_nrm, window)
-    wv, wu = window
-    a, bu = wv // 2, wu // 2
+    """Plain version of :func:`window_match`: the offset search of
+    :func:`window_match_indices_plain` with the target's occupancy, then the
+    winners' xyz and normal."""
+    _check(window, src, tgt_xyz=tgt_xyz, tgt_nrm=tgt_nrm)
     B, H, W, _ = src.shape
-    occ = (tgt_xyz != 0.0).any(-1, keepdim=True).to(torch.float32)
-    tgt = torch.cat([tgt_xyz, tgt_nrm, occ], dim=-1)
-    tgt_pad = F.pad(tgt, (0, 0, 0, 0, a, a))                   # empty rows
+    best_k, best_sq = window_match_indices_plain(src, tgt_xyz, _target_occupancy(tgt_xyz),
+                                                 window)
+    pix = winner_pixel(best_k, window, H, W)
+    found = torch.isfinite(best_sq).reshape(B, H * W, 1)
+    best_xyz = torch.where(found, _gather_pixels(tgt_xyz, pix), 0.0)
+    best_nrm = torch.where(found, _gather_pixels(tgt_nrm, pix), 0.0)
+    return best_sq, best_xyz.reshape(B, H, W, 3), best_nrm.reshape(B, H, W, 3)
+
+
+def window_match_soft_plain(src, tgt_xyz, tgt_nrm, window, sigma: float):
+    """Plain version of :func:`window_match_soft`: the reference's soft loop
+    in the same operation order (a separate multiply and add for each
+    accumulation), subnormals flushed."""
+    _check(window, src, tgt_xyz=tgt_xyz, tgt_nrm=tgt_nrm)
+    B, H, W, _ = src.shape
+    tau = inv_tau(sigma)
+    pad = _pad_rows(torch.cat([tgt_xyz, tgt_nrm, _target_occupancy(tgt_xyz)[..., None]],
+                              dim=-1), window)
     best_sq = torch.full((B, H, W), float("inf"), device=src.device)
-    best_xyz = torch.zeros_like(src, memory_format=torch.contiguous_format)
-    best_nrm = torch.zeros_like(best_xyz)
-    for dv in range(wv):
-        slab = tgt_pad[:, dv:dv + H]
-        for du in range(-bu, bu + 1):
-            cand = torch.roll(slab, -du, dims=2)              # cand[w] = slab[w + du]
-            sq = squared_distance(cand[..., 0:3] - src)
-            sq = torch.where(cand[..., 6] > 0.5, sq, float("inf"))
-            better = sq < best_sq
-            best_sq = torch.where(better, sq, best_sq)
-            best_xyz = torch.where(better[..., None], cand[..., 0:3], best_xyz)
-            best_nrm = torch.where(better[..., None], cand[..., 3:6], best_nrm)
-    return best_sq, best_xyz, best_nrm
+    acc_w = torch.zeros((B, H, W), device=src.device)
+    acc_xyz = torch.zeros((B, H, W, 3), device=src.device)
+    acc_nrm = torch.zeros((B, H, W, 3), device=src.device)
+    for _, cand in _window(pad, window, H):
+        sq = squared_distance(cand[..., 0:3] - src)
+        sq = torch.where(cand[..., 6] > 0.5, sq, float("inf"))
+        w = flush_subnormal(torch.where(torch.isfinite(sq), torch.exp(-sq * tau), 0.0))
+        best_sq = torch.minimum(best_sq, sq)
+        acc_w = flush_subnormal(acc_w + w)
+        acc_xyz = flush_subnormal(acc_xyz + flush_subnormal(w[..., None] * cand[..., 0:3]))
+        acc_nrm = flush_subnormal(acc_nrm + flush_subnormal(w[..., None] * cand[..., 3:6]))
+    best_sq = torch.where(acc_w < 1e-30, float("inf"), best_sq)
+    denom = torch.clamp(acc_w, min=1e-30)[..., None]
+    return best_sq, flush_subnormal(acc_xyz / denom), flush_subnormal(acc_nrm / denom)
 
 
 def window_match(src, tgt_xyz, tgt_nrm, window):
@@ -104,39 +230,101 @@ def window_match(src, tgt_xyz, tgt_nrm, window):
     ``window_match.launches``); on CPU tensors it runs
     :func:`window_match_plain`.
     """
-    if src.device.type == "cpu":
+    if not _device(src, "window_match"):
         return window_match_plain(src, tgt_xyz, tgt_nrm, window)
-    if src.device.type != "cuda":
-        raise ValueError(f"window_match runs on cuda or cpu, not {src.device}")
-    _check(src, tgt_xyz, tgt_nrm, window)
-    strides = [s for name, t in (("src", src), ("tgt_xyz", tgt_xyz), ("tgt_nrm", tgt_nrm))
-               for s in _strides(t, name)]
+    _check(window, src, tgt_xyz=tgt_xyz, tgt_nrm=tgt_nrm)
     B, H, W, _ = src.shape
-    wv, wu = window
+    best_sq = torch.empty(B, H, W, dtype=torch.float32, device=src.device)
+    best_xyz = torch.empty(B, H, W, 3, dtype=torch.float32, device=src.device)
+    best_nrm = torch.empty_like(best_xyz)
+    _launch_hard(src, tgt_xyz, tgt_nrm, None, best_sq, best_xyz, best_nrm, None, window)
+    window_match.launches += 1
+    return best_sq, best_xyz, best_nrm
+
+
+def window_match_indices(src, cand_xyz, cand_occ, window):
+    """Hard window match returning the winner's offset ``-> (best_k int32,
+    best_sq)``, both ``[B, H, W]``; ``cand_occ`` ``[B, H, W]`` float32 marks
+    occupied candidates (> 0.5).
+
+    On CUDA tensors it launches the kernel (and counts the launch in
+    ``window_match_indices.launches``); on CPU tensors it runs
+    :func:`window_match_indices_plain`.
+    """
+    if not _device(src, "window_match_indices"):
+        return window_match_indices_plain(src, cand_xyz, cand_occ, window)
+    _check(window, src, cand_xyz=cand_xyz, cand_occ=cand_occ)
+    B, H, W, _ = src.shape
+    best_sq = torch.empty(B, H, W, dtype=torch.float32, device=src.device)
+    best_k = torch.empty(B, H, W, dtype=torch.int32, device=src.device)
+    _launch_hard(src, cand_xyz, None, cand_occ, best_sq, None, None, best_k, window)
+    window_match_indices.launches += 1
+    return best_k, best_sq
+
+
+def window_match_soft(src, tgt_xyz, tgt_nrm, window, sigma: float):
+    """Soft window match ``-> (best_sq, blended xyz, blended normal)`` with
+    weights ``exp(-sq / sigma^2)``.
+
+    On CUDA tensors it launches the kernel (and counts the launch in
+    ``window_match_soft.launches``); on CPU tensors it runs
+    :func:`window_match_soft_plain`.
+    """
+    if not (sigma > 0.0):
+        raise ValueError(f"the soft matcher needs sigma > 0, got {sigma}")
+    if not _device(src, "window_match_soft"):
+        return window_match_soft_plain(src, tgt_xyz, tgt_nrm, window, sigma)
+    _check(window, src, tgt_xyz=tgt_xyz, tgt_nrm=tgt_nrm)
+    B, H, W, _ = src.shape
     best_sq = torch.empty(B, H, W, dtype=torch.float32, device=src.device)
     best_xyz = torch.empty(B, H, W, 3, dtype=torch.float32, device=src.device)
     best_nrm = torch.empty_like(best_xyz)
     lib = _library()
     with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.window_match_launch(
-            src.data_ptr(), strides[0], strides[1], tgt_xyz.data_ptr(), strides[2],
-            strides[3], tgt_nrm.data_ptr(), strides[4], strides[5], best_sq.data_ptr(),
-            best_xyz.data_ptr(), best_nrm.data_ptr(), B, H, W, wv, wu, stream,
-        )
+        err = lib.window_match_soft_launch(
+            *_view(src, "src"), *_view(tgt_xyz, "tgt_xyz"), *_view(tgt_nrm, "tgt_nrm"),
+            best_sq.data_ptr(), best_xyz.data_ptr(), best_nrm.data_ptr(), B, H, W,
+            window[0], window[1], inv_tau(sigma), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"window_match kernel launch failed with CUDA error {err}")
-    window_match.launches += 1
+        raise RuntimeError(f"window_match_soft kernel launch failed with CUDA error {err}")
+    window_match_soft.launches += 1
     return best_sq, best_xyz, best_nrm
 
 
 window_match.launches = 0
+window_match_indices.launches = 0
+window_match_soft.launches = 0
+
+
+def _view(t, name):
+    """(pointer, batch stride, pixel stride) of a kernel input; null if None."""
+    return (0, 0, 0) if t is None else (t.data_ptr(), *_strides(t, name))
+
+
+def _launch_hard(src, txyz, tnrm, occ, out_sq, out_xyz, out_nrm, out_k, window):
+    """One launch of the hard kernel; ``None`` inputs and outputs are null."""
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    B, H, W, _ = src.shape
+    lib = _library()
+    with torch.cuda.device(src.device):
+        err = lib.window_match_launch(
+            *_view(src, "src"), *_view(txyz, "candidate xyz"), *_view(tnrm, "tgt_nrm"),
+            *_view(occ, "occupancy"), ptr(out_sq), ptr(out_xyz), ptr(out_nrm), ptr(out_k),
+            B, H, W, window[0], window[1], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window_match kernel launch failed with CUDA error {err}")
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library("window_match")
-    fn = lib.window_match_launch
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    view = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+    lib.window_match_launch.argtypes = (view * 4 + [ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.window_match_launch.restype = ctypes.c_int
+    lib.window_match_soft_launch.argtypes = (view * 3 + [ctypes.c_void_p] * 3
+                                             + [ctypes.c_int] * 5
+                                             + [ctypes.c_float, ctypes.c_void_p])
+    lib.window_match_soft_launch.restype = ctypes.c_int
     return lib

@@ -1,16 +1,25 @@
 """Spherical range-image projection with closest-point-per-pixel dedup.
 
-The port of ``delora_tpu/ops/projection.py``'s image-only routes: per point,
-azimuth and elevation pixel coordinates, a field-of-view cull, then dense
-winner placement (``ops/cuda/placement.py``).
+The port of ``delora_tpu/ops/projection.py``'s routes: per point, azimuth
+and elevation pixel coordinates, a field-of-view cull, then dense winner
+placement (``ops/cuda/placement.py``).
 
 - ``project_image`` (serving; the reference's ``project_image`` ->
   ``project_compact_exact``): per pixel the point with the smallest range
   (ties: lowest index), range appended as the last channel. The port has no
   16-bit pixel-id limit, so every H*W takes this route.
+- ``project_scan_batch`` (the raw feed's brute-correspondence target): the same
+  winners, with the pixel -> point map and the per-point survivor flags.
+- ``project_compact_exact_batch`` (the raw feed's source, and its target under
+  the image matcher): the same winners, also compacted to the front in pixel
+  order.
 - ``project_image_packed_batch`` (the train step's re-projection of the warped
   source): the packed 16-bit range rule of ``project_image_packed_batch``,
   with the reference's count of overflowing placement tiles.
+
+Each takes one placement launch. The reference reaches the same winners
+through two or three stable sorts; the exact rule of the placement kernel is
+their rule, so the images, maps and compacted rows are bit-equal to it.
 """
 
 from __future__ import annotations
@@ -89,6 +98,99 @@ def _pixel_coords(points: torch.Tensor, valid: torch.Tensor, spec: ProjectionSpe
     vi = vi.to(torch.int32).clamp(0, H - 1)
     pix = torch.where(in_fov, vi * W + ui, H * W).to(torch.int32)
     return r, u, v, in_fov, pix
+
+
+class Projection(NamedTuple):
+    """Result of :func:`project_scan_batch` (leading batch axis on every
+    field).
+
+    image:       [B, H, W, C+1] every channel of the winner + its range.
+    survivor:    [B, N] bool: the point won its pixel.
+    point_index: [B, H, W] int32: index of the pixel's winner, -1 if empty.
+    u, v:        [B, N] unrounded pixel coordinates.
+    in_fov:      [B, N] bool: valid, range > 0 and inside the field of view.
+    """
+
+    image: torch.Tensor
+    survivor: torch.Tensor
+    point_index: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    in_fov: torch.Tensor
+
+
+def project_scan_batch(points: torch.Tensor, valid: torch.Tensor,
+                       spec: ProjectionSpec) -> Projection:
+    """The reference's ``vmap(project_scan)`` over ``[B, N, C>=3]`` points and
+    ``[B, N]`` masks. Each point's index rides the placement as one more
+    float32 payload channel (exact below 2**24 points); a pixel is occupied
+    where its winner's range, always > 0, is."""
+    B, N, C = points.shape
+    if N >= 1 << 24:
+        raise ValueError(f"project_scan_batch carries point indices in float32: N < 2**24, "
+                         f"got {N}")
+    points = points.to(torch.float32)
+    r, u, v, in_fov, pix = _pixel_coords(points, valid, spec)
+    ids = torch.arange(N, dtype=torch.float32, device=points.device).expand(B, N)
+    placed = placement(pix.contiguous(), r.contiguous(),
+                       torch.cat([points, ids[..., None]], dim=-1).contiguous(),
+                       spec.height, spec.width)
+    occupied = placed[..., C + 1] > 0.0
+    point_index = torch.where(occupied, placed[..., C].to(torch.int32), -1)
+    dest = torch.where(occupied, point_index, N).reshape(B, -1).to(torch.int64)
+    survivor = torch.zeros(B, N + 1, dtype=torch.bool, device=points.device)
+    survivor.scatter_(1, dest, True)
+    image = torch.cat([placed[..., :C], placed[..., C + 1:]], dim=-1)
+    return Projection(image, survivor[:, :N].contiguous(), point_index, u, v, in_fov)
+
+
+def gather_image_attribute(attr: torch.Tensor, point_index: torch.Tensor) -> torch.Tensor:
+    """Per-point attribute ``[B, N, C]`` -> per-pixel image ``[B, H, W, C]``
+    through ``point_index`` ``[B, H, W]``; empty pixels (-1) get zeros, the
+    "no normal" sentinel."""
+    B, H, W = point_index.shape
+    flat = point_index.reshape(B, H * W, 1).to(torch.int64)
+    gathered = torch.gather(attr, 1, flat.clamp(min=0).expand(-1, -1, attr.shape[-1]))
+    return torch.where(flat >= 0, gathered, 0.0).reshape(B, H, W, attr.shape[-1])
+
+
+class CompactImageProjection(NamedTuple):
+    """Result of :func:`project_compact_exact_batch`.
+
+    image:     [B, H, W, C+1] payload channels + the winner's range.
+    comp_vals: [B, cap, C+1] the winners' (payload..., range), pixel-ascending,
+               front-compacted, cap = min(N, H*W); rows past the winner count
+               are zero (the reference leaves junk there: mask with
+               ``comp_mask``).
+    comp_mask: [B, cap] bool: the slot holds a winner.
+    """
+
+    image: torch.Tensor
+    comp_vals: torch.Tensor
+    comp_mask: torch.Tensor
+
+
+def project_compact_exact_batch(points: torch.Tensor, valid: torch.Tensor,
+                                spec: ProjectionSpec, values: torch.Tensor = None
+                                ) -> CompactImageProjection:
+    """The reference's ``project_compact_exact_batch``: ``[B, N, 3]`` points,
+    ``[B, N]`` masks, payload ``values`` ``[B, N, C]`` (else the points). The
+    winners are the image's occupied pixels, so reading them in pixel order
+    gives the reference's compaction order (its second stable sort)."""
+    B, N, _ = points.shape
+    points = points.to(torch.float32)
+    feat = (points if values is None else values).to(torch.float32).contiguous()
+    r, _, _, _, pix = _pixel_coords(points, valid, spec)
+    image = placement(pix.contiguous(), r.contiguous(), feat, spec.height, spec.width)
+    cap = min(N, spec.height * spec.width)
+    C1 = image.shape[-1]
+    flat = image.reshape(B, -1, C1)
+    occupied = flat[..., -1] > 0.0
+    dest = torch.where(occupied, torch.cumsum(occupied, dim=1) - 1, cap)
+    comp = torch.zeros(B, cap + 1, C1, dtype=torch.float32, device=points.device)
+    comp.scatter_(1, dest[..., None].expand(-1, -1, C1), flat)
+    comp_mask = torch.arange(cap, device=points.device) < occupied.sum(1, keepdim=True)
+    return CompactImageProjection(image, comp[:, :cap], comp_mask)
 
 
 def project_image(points: torch.Tensor, valid: torch.Tensor,

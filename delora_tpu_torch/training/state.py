@@ -1,20 +1,26 @@
-"""Optimizer of the training step: Adam with optax semantics.
+"""Optimizer of the training step: Adam with optax semantics, and the
+parameter EMA.
 
-The port of ``delora_tpu/training/state.py``'s ``effective_learning_rate`` and
-``make_optimizer``. ``optax.adam`` divides by ``sqrt(nu_hat) + eps`` with
-``eps_root`` 0, which is what ``torch.optim.Adam`` computes (b1 0.9, b2 0.999,
-eps 1e-8). The cosine schedule is ``optax.cosine_decay_schedule``, evaluated,
-as optax does, at the count of updates made before the current one: the
-first step runs at the full rate.
+The port of ``delora_tpu/training/state.py``'s ``effective_learning_rate``,
+``make_optimizer``, ``track_param_ema``, ``ema_params`` and ``deploy_state``.
+``optax.adam`` divides by ``sqrt(nu_hat) + eps`` with ``eps_root`` 0, which is
+what ``torch.optim.Adam`` computes (b1 0.9, b2 0.999, eps 1e-8). The cosine
+schedule is ``optax.cosine_decay_schedule``, evaluated, as optax does, at the
+count of updates made before the current one: the first step runs at the full
+rate. With ``ema_decay`` d > 0, :class:`ParamEma` keeps real copies of the
+parameters and, after every optimizer step, ``ema <- d * ema + (1 - d) * p``
+with the updated parameters, as ``track_param_ema`` (last in the optax chain)
+sees ``params + updates``; :func:`deploy_model` is the model to evaluate or
+serve.
 
-Not ported: the parameter EMA (``ema_decay > 0``; the config refuses it) and
-``fused_adam`` (raises here).
+Not ported: ``fused_adam`` (raises here; numerically the same update).
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -50,8 +56,46 @@ def make_optimizer(config, params: Iterable[torch.nn.Parameter],
     ``optimizer.step()``."""
     if config.get("fused_adam", False):
         raise NotImplementedError("fused_adam is not ported: the port runs per-tensor Adam")
-    if float(config.get("ema_decay", 0.0)) > 0.0:
-        raise NotImplementedError("the parameter EMA (ema_decay > 0) is not ported yet")
     optimizer = torch.optim.Adam(params, lr=effective_learning_rate(config, global_batch_size),
                                  betas=(0.9, 0.999), eps=1e-8)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lr_factor(config))
+
+
+class ParamEma:
+    """Exponential moving average of a model's parameters, held as real
+    copies on the parameters' device."""
+
+    def __init__(self, model: torch.nn.Module, decay: float):
+        self.decay = float(decay)
+        named = [(k, p) for k, p in model.named_parameters()]
+        self.names = [k for k, _ in named]
+        self.params = [p.detach().clone() for _, p in named]
+
+    @torch.no_grad()
+    def update(self, model: torch.nn.Module) -> None:
+        """Fold in the model's current (post-update) parameters."""
+        live = [p.detach() for p in model.parameters()]
+        torch._foreach_mul_(self.params, self.decay)
+        torch._foreach_add_(self.params, live, alpha=1.0 - self.decay)
+
+
+def make_param_ema(config, model: torch.nn.Module) -> Optional[ParamEma]:
+    """The EMA of ``model``'s parameters when ``ema_decay`` > 0, else None
+    (nothing allocated)."""
+    decay = float(config.get("ema_decay", 0.0))
+    return ParamEma(model, decay) if decay > 0.0 else None
+
+
+def ema_params(ema: Optional[ParamEma]) -> Optional[Dict[str, torch.Tensor]]:
+    """The EMA parameters by name, or None if the EMA is off."""
+    return None if ema is None else dict(zip(ema.names, ema.params))
+
+
+def deploy_model(model: torch.nn.Module, ema: Optional[ParamEma]) -> torch.nn.Module:
+    """The model to evaluate or serve: a copy in eval mode carrying the EMA
+    weights when the EMA is tracked, else ``model`` itself."""
+    if ema is None:
+        return model
+    deployed = copy.deepcopy(model).eval()
+    deployed.load_state_dict(ema_params(ema))
+    return deployed

@@ -53,18 +53,51 @@ def test_config_rejects_bad_values():
 
 
 @pytest.mark.parametrize("override", [
+    {"random_point_cloud_rotations": True},
+    {"correspondence": "projective"},
+    {"fused_adam": True},
+    {"cache_source_projections": False},
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def test_unported_settings_raise(override):
+    """Settings whose code the port does not have are refused, never run
+    (``cache_source_projections: false`` selects the cached-target feed)."""
+    with pytest.raises(NotImplementedError):
+        default_config(override)
+
+
+@pytest.mark.parametrize("override", [
     {"soft_match_sigma": 0.3},
     {"lambda_reverse_po2pl": 1.0},
     {"ema_decay": 0.999},
     {"use_dropout": True},
-    {"random_point_cloud_rotations": True},
-    {"correspondence": "projective"},
     {"correspondence": "brute"},
+    {"cache_target_projections": False},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
-def test_unported_settings_raise(override):
-    """Settings whose code the port does not have are refused, never run."""
-    with pytest.raises(NotImplementedError):
-        default_config(override)
+def test_ported_settings_are_accepted_and_run(override):
+    """The quality recipe's settings, brute correspondence and the raw feed
+    pass validation and train: one epoch of a tiny world on the CPU."""
+    import numpy as np
+    import torch
+
+    from delora_tpu_torch.training.trainer import Trainer
+    from tests.test_torch_trainer import SMALL, tiny_world
+
+    config = default_config({**SMALL, **override})
+    assert all(config[k] == v for k, v in override.items())
+    trainer = Trainer(config, tiny_world([3]), device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    metrics = trainer.train_epoch(0)
+    assert metrics["steps"] == 2 and all(np.isfinite(v) for v in metrics.values())
+
+
+def test_feed_follows_the_reference():
+    from delora_tpu_torch.config import training_feed
+
+    assert training_feed(default_config()) == "full"
+    assert training_feed(default_config({"correspondence": "brute"})) == "raw"
+    assert training_feed(default_config({"cache_target_projections": False})) == "raw"
+    config = default_config({"correspondence": "brute", "cache_source_projections": False})
+    assert training_feed(config) == "raw"
 
 
 def test_config_carries_the_training_keys():
@@ -73,7 +106,9 @@ def test_config_carries_the_training_keys():
                 "lr_scaling_base_batch", "epochs", "point_to_point_loss", "point_to_plane_loss",
                 "plane_to_plane_loss", "po2po_alone", "normal_loss", "lambda_po2pl",
                 "lambda_pl2pl", "po2pl_trim_distance", "correspondence", "projective_window",
-                "normalization_scaling", "unsupervised_at_start", "steps_per_dispatch"):
+                "normalization_scaling", "unsupervised_at_start", "steps_per_dispatch",
+                "soft_match_sigma", "lambda_reverse_po2pl", "ema_decay", "use_dropout",
+                "cache_target_projections", "cache_source_projections", "use_pallas_nn"):
         assert key in config
     assert config["correspondence"] == "image" and config["projective_window"] == [5, 9]
 
@@ -85,3 +120,7 @@ def test_config_rejects_bad_training_values():
         default_config({"lr_schedule": "linear"})
     with pytest.raises(ValueError):
         default_config({"projective_window": [4, 9]})
+    with pytest.raises(ValueError):
+        default_config({"ema_decay": 1.0})
+    with pytest.raises(ValueError):
+        default_config({"soft_match_sigma": -0.1})

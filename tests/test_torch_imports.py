@@ -22,6 +22,12 @@ def imported_modules(path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    # The kernel wrappers and the modules of every ported path are scanned.
+    for module in ("ops/cuda/nn_search.py", "ops/cuda/window_match.py",
+                   "ops/cuda/placement.py", "ops/correspondence.py", "ops/projection.py",
+                   "training/step.py", "training/state.py", "training/trainer.py",
+                   "models/resnet.py"):
+        assert ROOT / "delora_tpu_torch" / module in PORT_FILES, module
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,11 +1,15 @@
 """The port's training step and optimizer against the JAX package's, in float32
 on the CPU.
 
-The batch is ``tests/test_step.py::synthetic_batch`` (16x64, two scan pairs)
-turned into fully-cached artifacts by each package's ``scan_artifacts_np``;
-the model is the narrow one of the port's model tests with numpy-drawn Flax
-params. Tolerances: loss and metrics rtol 1e-5 (``visible_pixels`` within one
-point); param gradients rtol 1e-4 / atol 1e-5 * max|g| per leaf: the two
+The batch is ``tests/test_step.py::synthetic_batch`` (16x64, two scan pairs),
+fed raw (``loss_and_metrics``) or turned into fully-cached artifacts by each
+package's ``scan_artifacts_np`` (``loss_and_metrics_fullcached``); the model
+is the narrow one of the port's model tests with numpy-drawn Flax params. The
+cases cover hard and soft matching, the reverse po2pl term with and without
+trimming, pair normalization, dropout in eval mode, and on the raw feed the
+image matcher and brute correspondence. Tolerances: loss and metrics rtol 1e-5
+(``visible_pixels`` within one point); param gradients rtol 1e-4 / atol
+1e-5 * max|g| per leaf: the two
 frameworks sum a leaf's terms over pixels and batch in different orders, and
 where the terms cancel the rounding scales with their sum of magnitudes, not
 with the result (measured up to 3.4e-6 * max|g|). The optimizer alone, fed
@@ -15,6 +19,15 @@ where a gradient element cancels to about Adam's eps (1e-8), the update
 lr * g / (|g| + eps) turns its last-bit difference between the frameworks
 into a visible share of lr (measured: 0.055 lr on one element of the last
 stage's first conv, whose taps read mostly the zero rows of the height pad).
+The soft matcher's blend is held to the same tolerances: the exp and the
+accumulation order of XLA and torch differ in the last bits (the matcher's
+own tests bound the blend at rtol 1e-5). Brute correspondence warps the
+source by a matmul whose last bits differ between the frameworks; a winner
+could then change hands only where two targets lie within that rounding of
+each other, and the test checks that no source point of this batch has its
+two nearest targets that close (``test_brute_batch_has_no_near_ties``). The
+parameter EMA fed the same gradients as optax's ``track_param_ema`` tracks it
+within rtol 1e-6 / atol 1e-6 * max|p|.
 """
 
 import jax
@@ -28,14 +41,19 @@ from delora_tpu.models.odometry import ModelConfig as JaxModelConfig
 from delora_tpu.models.odometry import OdometryModel as JaxOdometryModel
 from delora_tpu.ops.projection_host import scan_artifacts_np as jax_scan_artifacts_np
 from delora_tpu.training import step as jstep
-from delora_tpu.training.state import TrainState
+from delora_tpu.training.state import TrainState, deploy_state
 from delora_tpu.training.state import make_optimizer as jax_make_optimizer
 from delora_tpu_torch.losses.icp import IcpLossConfig
 from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
 from delora_tpu_torch.ops.projection import ProjectionSpec
 from delora_tpu_torch.ops.projection_host import scan_artifacts_np
 from delora_tpu_torch.training import step as tstep
-from delora_tpu_torch.training.state import make_optimizer
+from delora_tpu_torch.training.state import (
+    deploy_model,
+    ema_params,
+    make_optimizer,
+    make_param_ema,
+)
 from delora_tpu_torch.utils.params import grads_to_jax, params_from_jax, params_to_jax
 from tests.test_step import PSPEC, synthetic_batch
 
@@ -60,8 +78,13 @@ def fullcached_arrays(batch, artifacts, spec, **kw):
 
 
 @pytest.fixture(scope="module")
-def data():
-    batch, _ = synthetic_batch(seed=3)
+def scan_pairs():
+    return synthetic_batch(seed=3)[0]
+
+
+@pytest.fixture(scope="module")
+def data(scan_pairs):
+    batch = scan_pairs
     ref = fullcached_arrays(batch, jax_scan_artifacts_np, PSPEC, use_native=False)
     port = fullcached_arrays(batch, scan_artifacts_np, TSPEC)
     jmodel = JaxOdometryModel(JaxModelConfig(compute_dtype=jnp.float32, **MODEL))
@@ -77,8 +100,8 @@ def data():
     return ref, port, jmodel, params
 
 
-def port_model(params):
-    model = OdometryModel(ModelConfig(compute_dtype=torch.float32, **MODEL))
+def port_model(params, **kw):
+    model = OdometryModel(ModelConfig(compute_dtype=torch.float32, **MODEL, **kw))
     model.load_state_dict(params_from_jax(params))
     return model
 
@@ -114,26 +137,44 @@ CASES = {
     "unsupervised-normalized": dict(normalization_scaling=True),
     "supervised": dict(supervised=True),
     "unsupervised-trim": dict(trim=0.5),
+    "soft": dict(soft_match_sigma=0.3),
+    "soft-reverse": dict(soft_match_sigma=0.3, lambda_rev_po2pl=1.0),
+    "reverse-trim": dict(lambda_rev_po2pl=1.0, trim=0.5),
+    "soft-reverse-normalized": dict(soft_match_sigma=0.3, lambda_rev_po2pl=1.0,
+                                    normalization_scaling=True),
+    "dropout-eval": dict(use_dropout=True, deterministic=True),
+}
+RAW_CASES = {
+    "raw-image": dict(correspondence="image"),
+    "raw-brute": dict(correspondence="brute"),
+    "raw-brute-normalized": dict(correspondence="brute", normalization_scaling=True),
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_loss_metrics_and_grads_match_jax(data, case):
-    ref_arrays, port_arrays, jmodel, params = data
-    kw = dict(CASES[case])
+def step_configs(kw):
+    """(JAX StepConfig, port StepConfig, model keywords) of a case."""
+    kw = dict(kw)
     trim = kw.pop("trim", 0.0)
+    model_kw = {k: kw.pop(k) for k in ("use_dropout",) if k in kw}
+    kw.setdefault("correspondence", "image")
     jcfg = jstep.StepConfig(proj=PSPEC, icp=JaxIcpLossConfig(trim_sq_distance=trim * trim),
-                            correspondence="image", **kw)
-    jbatch = jstep.FullyCachedBatch(*map(jnp.asarray, ref_arrays))
+                            **kw)
+    cfg = tstep.StepConfig(proj=TSPEC, icp=IcpLossConfig(trim_sq_distance=trim * trim), **kw)
+    return jcfg, cfg, model_kw
+
+
+def check_step_against_jax(jax_loss_fn, jbatch, port_loss_fn, batch, params, kw):
+    """Loss, metrics and gradients of one step of each package on the same
+    params and batch."""
+    jcfg, cfg, model_kw = step_configs(kw)
+    jmodel = JaxOdometryModel(JaxModelConfig(compute_dtype=jnp.float32, **MODEL, **model_kw))
     grad_fn = jax.jit(jax.value_and_grad(
-        lambda p: jstep.loss_and_metrics_fullcached(jmodel.apply, p, jbatch, jcfg,
-                                                    jax.random.PRNGKey(0)), has_aux=True))
+        lambda p: jax_loss_fn(jmodel.apply, p, jbatch, jcfg, jax.random.PRNGKey(0)),
+        has_aux=True))
     (loss_ref, (metrics_ref, _)), grads_ref = grad_fn(params)
 
-    model = port_model(params)
-    cfg = tstep.StepConfig(proj=TSPEC, icp=IcpLossConfig(trim_sq_distance=trim * trim), **kw)
-    loss, metrics = tstep.loss_and_metrics_fullcached(
-        model, tstep.FullyCachedBatch(*map(torch.from_numpy, port_arrays)), cfg)
+    model = port_model(params, **model_kw)
+    loss, metrics = port_loss_fn(model, batch, cfg)
     loss.backward()
 
     np.testing.assert_allclose(loss.item(), float(loss_ref), rtol=1e-5)
@@ -143,6 +184,61 @@ def test_loss_metrics_and_grads_match_jax(data, case):
     grad_norm = tstep.optax_global_norm([p.grad for p in model.parameters()])
     np.testing.assert_allclose(grad_norm.item(), float(jstep.optax_global_norm(grads_ref)),
                                rtol=1e-4)
+    return metrics
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_loss_metrics_and_grads_match_jax(data, case):
+    ref_arrays, port_arrays, _, params = data
+    metrics = check_step_against_jax(
+        jstep.loss_and_metrics_fullcached, jstep.FullyCachedBatch(*map(jnp.asarray, ref_arrays)),
+        tstep.loss_and_metrics_fullcached,
+        tstep.FullyCachedBatch(*map(torch.from_numpy, port_arrays)), params, CASES[case])
+    if CASES[case].get("lambda_rev_po2pl"):
+        assert metrics["loss_po2pl_rev"].item() > 0.0
+
+
+def port_scan_pairs(batch):
+    return tstep.ScanPairBatch(*(torch.from_numpy(np.array(x)) for x in batch))
+
+
+@pytest.mark.parametrize("case", sorted(RAW_CASES))
+def test_raw_loss_metrics_and_grads_match_jax(data, scan_pairs, case):
+    params = data[3]
+    check_step_against_jax(jstep.loss_and_metrics, scan_pairs, tstep.loss_and_metrics,
+                           port_scan_pairs(scan_pairs), params, RAW_CASES[case])
+
+
+def test_raw_feed_beyond_65536_pixels_raises():
+    """The reference compacts the source with ``project_scan_compact`` there,
+    which is not ported: the step refuses before it runs the model."""
+    spec = ProjectionSpec(64, 1024, *TSPEC[2:])
+    cfg = tstep.StepConfig(proj=spec, icp=IcpLossConfig(), correspondence="brute")
+    pts = torch.ones(1, 64, 3)
+    batch = tstep.ScanPairBatch(pts, pts, torch.ones(1, 64, dtype=torch.bool), pts, pts,
+                                torch.ones(1, 64, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="project_scan_compact"):
+        tstep.loss_and_metrics(None, batch, cfg)
+
+
+def test_brute_batch_has_no_near_ties(scan_pairs):
+    """Under the identity pose (the narrow model's outputs stay near it), no
+    source survivor of the raw batch has its two nearest target survivors
+    within a relative 1e-5 of each other, so the frameworks' last-bit
+    differences in the warp cannot move a brute winner."""
+    from scipy.spatial import cKDTree
+
+    from delora_tpu_torch.ops.projection import project_compact_exact_batch, project_scan_batch
+
+    batch = port_scan_pairs(scan_pairs)
+    target = project_scan_batch(batch.points_1, batch.valid_1, TSPEC)
+    source = project_compact_exact_batch(batch.points_2, batch.valid_2, TSPEC)
+    for b in range(batch.points_1.shape[0]):
+        tgt = batch.points_1[b][target.survivor[b]].double().numpy()
+        src = source.comp_vals[b][source.comp_mask[b], 0:3].double().numpy()
+        dist, _ = cKDTree(tgt).query(src, k=2)
+        gap = (dist[:, 1] ** 2 - dist[:, 0] ** 2) / np.maximum(dist[:, 1] ** 2, 1e-12)
+        assert len(src) > 100 and gap.min() > 1e-5, gap.min()
 
 
 @pytest.mark.parametrize("schedule", ["constant", "cosine"])
@@ -222,8 +318,47 @@ def test_linear_lr_scaling():
     assert effective_learning_rate({"learning_rate": 1e-4}, 64) == 1e-4
 
 
-@pytest.mark.parametrize("key", ["fused_adam", "ema_decay"])
+@pytest.mark.parametrize("key", ["fused_adam"])
 def test_unported_optimizer_settings_raise(key):
-    config = {"learning_rate": 1e-4, key: {"fused_adam": True, "ema_decay": 0.999}[key]}
+    config = {"learning_rate": 1e-4, key: True}
     with pytest.raises(NotImplementedError):
         make_optimizer(config, torch.nn.Linear(2, 1).parameters(), 8)
+
+
+def test_ema_is_off_by_default_and_allocates_nothing():
+    model = torch.nn.Linear(2, 1)
+    assert make_param_ema({"ema_decay": 0.0}, model) is None
+    assert ema_params(None) is None and deploy_model(model, None) is model
+
+
+@pytest.mark.parametrize("decay", [0.999, 0.9])
+def test_adam_with_ema_tracks_optax(data, decay):
+    """K Adam steps with the parameter EMA, fed the same gradients, against
+    ``optax.chain(optax.adam, track_param_ema)``; the deploy model carries
+    the EMA as ``deploy_state`` does."""
+    params = data[3]
+    config = {"learning_rate": 1e-3, "lr_scaling": "none", "ema_decay": decay}
+    rng = np.random.default_rng(2)
+    grads = [jax.tree_util.tree_map(
+        lambda p: (rng.normal(size=p.shape) * 0.1).astype(np.float32), params)
+        for _ in range(3)]
+    state = TrainState.create(apply_fn=None, params=params, tx=jax_make_optimizer(config, 8))
+    model = port_model(params)
+    optimizer, schedule = make_optimizer(config, model.parameters(), 8)
+    ema = make_param_ema(config, model)
+    named = dict(model.named_parameters())
+    assert all(e.data_ptr() != named[k].data_ptr() for k, e in ema_params(ema).items())
+    for g in grads:
+        state = state.apply_gradients(grads=jax.tree_util.tree_map(jnp.asarray, g))
+        for k, v in params_from_jax(g).items():
+            named[k].grad = v
+        optimizer.step()
+        schedule.step()
+        ema.update(model)
+    assert_trees_close(state.params, params_to_jax(model.state_dict()), rtol=1e-6,
+                       atol_scale=1e-6)
+    deployed = deploy_model(model, ema)
+    assert deployed is not model and not deployed.training
+    assert_trees_close(deploy_state(state).params, params_to_jax(deployed.state_dict()),
+                       rtol=1e-6, atol_scale=1e-6)
+    assert not torch.equal(deployed.resnet.fc.weight, model.resnet.fc.weight)

@@ -1,6 +1,8 @@
 """The port's trainer on the CPU: a tiny world of in-memory scans, tables on
 the device (here the CPU), the warmup switch, the epoch order of the
-reference's loader, and pairs that never cross sequences."""
+reference's loader, pairs that never cross sequences, the raw feed (brute
+correspondence), and the quality recipe (soft matching, reverse po2pl, EMA,
+dropout)."""
 
 import math
 
@@ -74,3 +76,57 @@ def test_trainer_runs_on_cuda_unless_told():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(default_config(SMALL), tiny_world([3]))
+
+
+def test_raw_feed_trains_brute_correspondence():
+    config = default_config({**SMALL, "correspondence": "brute", "batch_size": 2,
+                             "unsupervised_at_start": True})
+    trainer = Trainer(config, tiny_world([4, 3]), device="cpu")
+    assert trainer.feed == "raw" and len(trainer.tables) == 3
+    points, normals, valid = trainer.tables
+    assert points.shape == (7, 1024, 3) and valid.dtype == torch.bool
+    assert valid.sum(1).tolist() == [600] * 7
+    history = trainer.train(2)
+    for h in history:
+        assert h["steps"] == 2 and all(np.isfinite(v) for v in h.values())
+        assert h["num_po2pl_pairs"] > 10 and h["loss"] == pytest.approx(h["loss_pc"])
+    np.testing.assert_array_equal(trainer.epoch_indices(1),
+                                  np.random.default_rng(1).permutation(5)[:4])
+
+
+def test_raw_feed_truncates_to_max_points():
+    config = default_config({**SMALL, "cache_target_projections": False,
+                             "kitti": {"max_points": 500}})
+    trainer = Trainer(config, tiny_world([2]), device="cpu")
+    assert trainer.feed == "raw" and trainer.tables[0].shape == (2, 500, 3)
+    assert trainer.tables[2].all()
+
+
+def test_quality_recipe_trains_and_deploys_the_ema():
+    recipe = {**SMALL, "soft_match_sigma": 0.3, "lambda_reverse_po2pl": 1.0,
+              "ema_decay": 0.9, "use_dropout": True, "unsupervised_at_start": True}
+
+    def run():
+        trainer = Trainer(default_config(recipe), tiny_world([4]), device="cpu",
+                          generator=torch.Generator().manual_seed(3))
+        return trainer, trainer.train(2)
+
+    trainer, history = run()
+    assert trainer.feed == "full" and trainer.dropout_generator is not None
+    for h in history:
+        assert all(np.isfinite(v) for v in h.values()) and h["loss_po2pl_rev"] > 0
+    deployed = trainer.deploy_model()
+    assert deployed is not trainer.model and not deployed.training
+    live = dict(trainer.model.named_parameters())
+    for name, value in deployed.named_parameters():
+        assert torch.isfinite(value).all()
+        assert value.data_ptr() != live[name].data_ptr()
+    assert not torch.equal(deployed.resnet.fc.weight, trainer.model.resnet.fc.weight)
+    # The dropout masks come from the trainer's seeded generator.
+    _, again = run()
+    assert [h["loss"] for h in again] == [h["loss"] for h in history]
+
+
+def test_without_ema_the_deploy_model_is_the_model():
+    trainer = Trainer(default_config(SMALL), tiny_world([3]), device="cpu")
+    assert trainer.ema is None and trainer.deploy_model() is trainer.model
