@@ -19,6 +19,9 @@ exits non-zero without printing a result:
      7 payload channels, no range channel) on the main path's warped
      survivors and on a cloud with duplicates and 16-bit range near-ties; its
      overflow count equal to the plain path's on the CPU;
+   - placement after a larger call: the key workspace that the kernel keeps
+     between calls is clean at the real shapes (exact B = 8, then exact
+     B = 1, packed on the survivors, exact B = 8 again, each bit-equal);
    - window matcher, B = 8 at 64x720 with windows (5,9) and (9,17), and
      B = 1 at 64x2250, on targets with duplicated points (ties) and empty
      rows;
@@ -29,11 +32,12 @@ exits non-zero without printing a result:
    - index search (the reverse direction's), B = 8 at 64x720, (5,9): target
      pixels against a warped-source image with its occupancy plane;
    - exact 1-NN, B = 8, S = 46,080 warped survivors against T = 131,072
-     padded target points with the drive's survivor mask, and a near-tie
-     cloud with duplicated targets;
+     padded target points with the drive's survivor mask, its first scan
+     pair alone (B = 1), and a near-tie cloud with duplicated targets;
    with the time of a wrapper call (CUDA events), the kernels' device time
-   (torch.profiler), the plain version's time, the bound and a one-call
-   PyTorch yardstick where there is one;
+   (torch.profiler; the placement's by pass), the plain version's time, the
+   bound and a one-call PyTorch yardstick where there is one (its call and
+   its device time);
 5. serving: ``StreamingOdometry`` at the full width of the default KITTI model
    (bf16 autocast, random weights from a seeded generator) on the first 12
    scans; every relative transform finite and rigid, every scan through the
@@ -71,6 +75,24 @@ prints each epoch's pairs/s from the fourth on, their median and quartiles.
 It uses only the trainer's long-standing interface, so this one file,
 placed beside an older commit's ``delora_tpu_torch``, times both commits the
 same way.
+
+    python3 chip_smoke.py --serve-rate ROUNDS
+
+pushes phase 3's first 12 scans through ``StreamingOdometry`` ROUNDS times in
+a fresh process and prints the per-scan latency's median and quartiles after
+the first round; like ``--train-rate`` it reads only the long-standing
+interface.
+
+    python3 chip_smoke.py --placement-time
+
+times the placement wrapper alone at the exact rule's serving shape (B = 1,
+N = 131072, C = 3 + range) and the packed rule's train shape (B = 8, N =
+46,080 warped survivors of scans that hit every pixel, C = 7): a call (CUDA
+events), the device time by pass (torch.profiler), the scatter_reduce_
+yardstick's call and device time, and the host microseconds of the
+wrapper's parts (checks, stream, key workspace or key buffer, output,
+``ctypes`` launch). It reads the wrapper of this commit or of an older one,
+so the same file, placed beside both, compares them in one call.
 """
 
 from __future__ import annotations
@@ -91,7 +113,7 @@ FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 H, W, N = 64, 720, 131072
 TRAIN_B = 8
 SEED = 0
-PLACEMENT_KERNELS = ("init_keys", "select_winners", "write_image")
+PLACEMENT_KERNELS = ("select_winners", "write_and_reset")
 MATCHER_KERNELS = ("window_match_hard",)
 SOFT_KERNELS = ("window_match_soft",)
 NN_KERNELS = ("nn_compact_targets", "nn_search")
@@ -200,6 +222,147 @@ def near_tie_cloud(rng: np.random.Generator, n: int, spec) -> np.ndarray:
     return pts
 
 
+def survivor_cloud(rng: np.random.Generator, spec, batch: int) -> np.ndarray:
+    """[batch, H*W, 3]: the compacted survivors of scans that hit every
+    pixel, one point on each pixel's centre ray at a range of 2-80 m, turned
+    0.02 rad in yaw and moved 0.9 m ahead, as the train step warps them."""
+    el = spec.fov_up - (np.arange(spec.height) + 0.5) / spec.height * (spec.fov_up - spec.fov_down)
+    az = spec.fov_left + (np.arange(spec.width) + 0.5) / spec.width * (spec.fov_right
+                                                                     - spec.fov_left)
+    e, a = (g.ravel() for g in np.meshgrid(el, az, indexing="ij"))
+    rng_m = rng.uniform(2.0, 80.0, (batch, e.size))
+    x, y, z = (rng_m * np.cos(e) * np.cos(a), rng_m * np.cos(e) * np.sin(a), rng_m * np.sin(e))
+    c, s = math.cos(0.02), math.sin(0.02)
+    return np.stack([c * x - s * y + 0.9, s * x + c * y, z], -1).astype(np.float32)
+
+
+def placement_yardstick(pix, r, hw: int, packed: bool):
+    """One scatter_reduce_ amin over (range key << 32 | index) keys: the
+    winner selection alone, as a PyTorch call the port never makes. The range
+    key is the f32 bits (exact rule, ranges > 0) or their top 16 (packed)."""
+    B, n = pix.shape
+    bits = r.view(torch.int32).long()
+    keys = ((bits >> 16) & 0xFFFF if packed else bits) << 32 | torch.arange(n, device=r.device)
+    slot = torch.where((pix >= 0) & (pix < hw),
+                       pix + hw * torch.arange(B, device=r.device)[:, None], B * hw).long()
+    return lambda: torch.full((B * hw + 1,), 2**63 - 1, dtype=torch.int64,
+                              device=r.device).scatter_reduce_(0, slot.view(-1),
+                                                               keys.view(-1), "amin")
+
+
+def host_us(fn, calls: int = 100, reps: int = 20) -> float:
+    """Host microseconds of one call (perf_counter, median of ``reps`` samples
+    of ``calls`` calls, the card drained between samples and never waited on
+    inside one)."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def placement_host_split(mod, args, kw):
+    """Host microseconds of the parts of one placement wrapper call, each
+    timed alone, for this tree's lean wrapper or an older one (per-call
+    checks, ``_library()``, the device context, a key buffer per call)."""
+    pix, r, vals, height, width = args
+    packed, append = kw.get("packed", False), kw.get("append_range", True)
+    dev = pix.device
+    B, n = pix.shape
+    C = vals.shape[2]
+    hw = height * width
+    out = torch.empty(B, height, width, C + int(append), dtype=torch.float32, device=dev)
+    ptrs = (pix.data_ptr(), r.data_ptr(), vals.data_ptr())
+    parts = {}
+    if hasattr(mod, "_check_launch"):
+        index = dev.index
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        keys = mod._workspace(index, stream, B * hw, dev)
+        fn = mod._launcher()
+        key32 = int(mod.key_bits(packed, n) == 32)
+        parts["checks"] = host_us(lambda: mod._check_launch(*args))
+        parts["stream"] = host_us(lambda: torch._C._cuda_getCurrentRawStream(index))
+        parts["workspace"] = host_us(lambda: mod._workspace(index, stream, B * hw, dev))
+        parts["output"] = host_us(lambda: vals.new_empty((B, height, width, C + int(append))))
+        parts["launch"] = host_us(lambda: fn(*ptrs, keys.data_ptr(), out.data_ptr(), B, n, C,
+                                             hw, int(packed), key32, int(append), index,
+                                             stream))
+    else:
+        keys = torch.empty(B * hw, dtype=torch.int64, device=dev)
+        lib = mod._library()
+
+        def stream():
+            with torch.cuda.device(dev):
+                return torch.cuda.current_stream().cuda_stream
+
+        raw = stream()
+        parts["checks"] = host_us(lambda: (mod._check(*args), pix.is_contiguous(),
+                                           r.is_contiguous(), vals.is_contiguous()))
+        parts["library"] = host_us(mod._library)
+        parts["stream"] = host_us(stream)
+        parts["keys"] = host_us(lambda: torch.empty(B * hw, dtype=torch.int64, device=dev))
+        parts["output"] = host_us(lambda: torch.empty(B, height, width, C + int(append),
+                                                      dtype=torch.float32, device=dev))
+        parts["launch"] = host_us(lambda: lib.placement_launch(
+            *ptrs, keys.data_ptr(), out.data_ptr(), B, n, C, hw, int(packed), int(append), raw))
+    parts["call"] = host_us(lambda: mod.placement(*args, **kw))
+    return parts
+
+
+def placement_time() -> None:
+    """``--placement-time`` (see the module docstring)."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.ops.cuda import placement as mod
+    from delora_tpu_torch.ops.projection import ProjectionSpec, _pixel_coords
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
+    card = card_line()
+    say(f"placement-time: {mod.__file__} | raw stream query "
+        f"{hasattr(torch._C, '_cuda_getCurrentRawStream')} | torch {torch.__version__} on {card}")
+    spec = ProjectionSpec.from_config(default_config())
+    hw = spec.height * spec.width
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    cases = []
+    pts = torch.from_numpy(kitti_like_cloud(rng, N, spec)[None]).to(dev)
+    r, _, _, _, pix = _pixel_coords(pts, torch.ones(1, N, dtype=torch.bool, device=dev), spec)
+    cases.append(("exact B=1 N=131072 C=3+range", (pix.contiguous(), r.contiguous(), pts,
+                                                    spec.height, spec.width), {}))
+    sur = torch.from_numpy(survivor_cloud(rng, spec, TRAIN_B)).to(dev)
+    vals = torch.from_numpy(rng.normal(size=sur.shape[:2] + (7,)).astype(np.float32)).to(dev)
+    r, _, _, _, pix = _pixel_coords(sur, torch.ones(sur.shape[:2], dtype=torch.bool,
+                                                    device=dev), spec)
+    cases.append((f"packed B={TRAIN_B} N={sur.shape[1]} C=7", (
+        pix.contiguous(), r.contiguous(), vals, spec.height, spec.width),
+        dict(packed=True, append_range=False)))
+    results = {}
+    for label, args, kw in cases:
+        out = mod.placement(*args, **kw)
+        require_equal(f"placement {label}", [out], [mod.placement_plain(*args, **kw)])
+        ms = cuda_ms(lambda: mod.placement(*args, **kw))
+        passes, _ = device_kernel_times(lambda: mod.placement(*args, **kw), 50)
+        yard = placement_yardstick(args[0], args[1], hw, kw.get("packed", False))
+        lib_ms = cuda_ms(yard)
+        lib_dev, _ = device_kernel_times(yard, 50)
+        host = placement_host_split(mod, args, kw)
+        results[label] = dict(ms=ms, device_ms=sum(passes.values()), passes=passes,
+                              library_ms=lib_ms, library_device_ms=sum(lib_dev.values()),
+                              host_us=host)
+        say(f"placement {label}: bit-equal to plain | call {ms * 1e3:.2f} us, device "
+            f"{sum(passes.values()) * 1e3:.2f} us ("
+            + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in passes.items())
+            + f"); scatter_reduce amin call {lib_ms * 1e3:.2f} us, device "
+            f"{sum(lib_dev.values()) * 1e3:.2f} us | host us: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f" on {card}")
+    print(json.dumps({"placement_time": results}), flush=True)
+
+
 def drive(n_scans: int, rng: np.random.Generator):
     """A sensor moving 1 m per scan (yaw 0.01 rad per scan) down a street:
     ground at -1.73 m, facades at y = -7 and +9 m, a wall 120 m ahead and a
@@ -298,14 +461,8 @@ def check_exact_placement(spec, rng, card):
         occ = ref[..., 3] > 0
         ms = cuda_ms(lambda: placement(*args))
         plain_ms = cuda_ms(lambda: placement_plain(*args), reps=10, inner=5)
-        # Yardstick: the winner selection alone, as one scatter_reduce_ over
-        # (range bits << 32 | index) keys. The port never calls it.
-        keys64 = (r.view(torch.int32).long() << 32) | torch.arange(N, device=dev)
-        slot = torch.where(pix < hw, pix + hw * torch.arange(batch, device=dev)[:, None],
-                           batch * hw).long()
-        lib_ms = cuda_ms(lambda: torch.full((batch * hw + 1,), 2**63 - 1, dtype=torch.int64,
-                                            device=dev).scatter_reduce_(
-            0, slot.view(-1), keys64.view(-1), "amin"))
+        yard = placement_yardstick(args[0], args[1], hw, packed=False)
+        lib_ms = cuda_ms(yard)
         C = pts.shape[-1]
         moved = batch * N * 8 + int(occ.sum().item()) * C * 4 + batch * hw * (C + 1) * 4
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -314,13 +471,28 @@ def check_exact_placement(spec, rng, card):
             f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, scatter_reduce amin "
             f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({moved} B) on {card}")
         if batch == 1:    # serving projects one scan at a time
-            dev_ms = profiled_device_ms(lambda: placement(*args), PLACEMENT_KERNELS)
+            dev_ms = placement_device_times("placement exact B=1", lambda: placement(*args),
+                                            yard, lib_ms, card)
             timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                           device_ms=dev_ms)
-            say("placement exact B=1 device time of its three kernels (torch.profiler): "
-                + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us")
-                + f" per call on {card}")
     return timing, max_err
+
+
+def placement_device_times(label, call, yard, lib_ms, card):
+    """Print a placement call's device time by pass and the yardstick's device
+    time beside its call (torch.profiler, 50 calls) -> the call's device ms
+    (None when the profiler saw no device time)."""
+    passes, _ = device_kernel_times(call, 50)
+    passes = {k[k.index(n):].split("(")[0]: v for k, v in passes.items()
+              for n in PLACEMENT_KERNELS if n in k}
+    lib_dev, _ = device_kernel_times(yard, 50)
+    dev_ms = sum(passes.values()) or None
+    say(f"{label} device time (torch.profiler): "
+        + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us = " + " + ".join(
+            f"{k} {v * 1e3:.2f} us" for k, v in passes.items()))
+        + f"; scatter_reduce amin yardstick: call {lib_ms * 1e3:.2f} us, device "
+        f"{sum(lib_dev.values()) * 1e3:.2f} us per call on {card}")
+    return dev_ms
 
 
 def warped_survivors(trainer):
@@ -347,7 +519,7 @@ def check_packed_placement(trainer, spec, rng, card):
 
     pos, valid, vals = warped_survivors(trainer)
     B, cap = valid.shape
-    r, _, _, in_fov, pix = _pixel_coords(pos, valid, spec)
+    r, _, _, _, pix = _pixel_coords(pos, valid, spec)
     args = (pix.contiguous(), r.contiguous(), vals, spec.height, spec.width)
     kw = dict(packed=True, append_range=False)
     out = placement(*args, **kw)
@@ -375,16 +547,10 @@ def check_packed_placement(trainer, spec, rng, card):
     occ = ref[..., 6] > 0.5
     ms = cuda_ms(lambda: placement(*args, **kw))
     plain_ms = cuda_ms(lambda: placement_plain(*args, **kw), reps=10, inner=5)
-    dev_ms = profiled_device_ms(lambda: placement(*args, **kw), PLACEMENT_KERNELS)
-    # Yardstick: the packed winner selection alone, one scatter_reduce_ amin
-    # over (16-bit range key << 32 | index). The port never calls it.
-    keys64 = (((r.view(torch.int32) >> 16) & 0xFFFF).long() << 32) | torch.arange(
-        cap, device=r.device)
-    slot = torch.where(in_fov, pix + hw * torch.arange(B, device=r.device)[:, None],
-                       B * hw).long()
-    lib_ms = cuda_ms(lambda: torch.full((B * hw + 1,), 2**63 - 1, dtype=torch.int64,
-                                        device=r.device).scatter_reduce_(
-        0, slot.view(-1), keys64.view(-1), "amin"))
+    yard = placement_yardstick(args[0], args[1], hw, packed=True)
+    lib_ms = cuda_ms(yard)
+    dev_ms = placement_device_times(f"placement packed B={B}", lambda: placement(*args, **kw),
+                                    yard, lib_ms, card)
     C = vals.shape[-1]
     moved = B * cap * 8 + int(occ.sum().item()) * C * 4 + B * hw * C * 4
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -399,6 +565,42 @@ def check_packed_placement(trainer, spec, rng, card):
         raise RuntimeError("the near-tie cloud did not separate the packed and exact rules")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 device_ms=dev_ms), err
+
+
+def check_placement_after_larger_call(trainer, spec, rng, card):
+    """Phase 4g: the key workspace at the real shapes. The placement keeps
+    its keys between calls and its write pass leaves them empty, so each
+    call here follows a larger one on other data: the exact rule at B = 8,
+    N = 131072 (64-bit keys over 8 images), then the serving shape (exact,
+    B = 1), the main path's (packed, 32-bit keys, the warped survivors) and
+    the large call again, each bit-equal to its plain version."""
+    from delora_tpu_torch.ops.cuda.placement import placement, placement_plain
+    from delora_tpu_torch.ops.projection import _pixel_coords
+
+    dev = torch.device("cuda")
+
+    def exact_args(batch):
+        pts = torch.from_numpy(np.stack([kitti_like_cloud(rng, N, spec)
+                                         for _ in range(batch)])).to(dev)
+        r, _, _, _, pix = _pixel_coords(pts, torch.ones(batch, N, dtype=torch.bool, device=dev),
+                                        spec)
+        return (pix.contiguous(), r.contiguous(), pts, spec.height, spec.width), {}
+
+    pos, valid, vals = warped_survivors(trainer)
+    r, _, _, _, pix = _pixel_coords(pos, valid, spec)
+    big = exact_args(TRAIN_B)
+    calls = [(f"exact B={TRAIN_B} N={N}", big), (f"exact B=1 N={N}", exact_args(1)),
+             (f"packed B={TRAIN_B} warped survivors", (
+                 (pix.contiguous(), r.contiguous(), vals, spec.height, spec.width),
+                 dict(packed=True, append_range=False))),
+             (f"exact B={TRAIN_B} N={N} again", big)]
+    err = 0.0
+    for label, (args, kw) in calls:
+        err = max(err, require_equal(f"placement after a larger call: {label}",
+                                     [placement(*args, **kw)], [placement_plain(*args, **kw)]))
+    say("placement after larger calls: " + ", then ".join(label for label, _ in calls)
+        + f", each bit-equal to its plain version on {card}")
+    return err
 
 
 def matcher_inputs(image, normals, rng):
@@ -648,6 +850,19 @@ def check_nn_search(trainer, scans, normals, spec, rng, card):
     ms = cuda_ms(lambda: nn_search(*args), reps=5, inner=3)
     dev_ms = profiled_device_ms(lambda: nn_search(*args), NN_KERNELS, calls=5)
     bound_ms, bound_by, pairs = nn_bound(pos, survivor)
+    # One scan pair (B = 1): the reference's unbatched kernel's work, which
+    # the port's batched kernel also serves.
+    one = tuple(a[:1] for a in args)
+    one_ref = []
+    one_plain_ms = once_ms(lambda: one_ref.extend(nn_search_plain(*one)))
+    err = max(err, require_equal("nn_search B=1", nn_search(*one), one_ref))
+    one_ms = cuda_ms(lambda: nn_search(*one), reps=5, inner=3)
+    one_dev_ms = profiled_device_ms(lambda: nn_search(*one), NN_KERNELS, calls=5)
+    one_bound_ms, one_bound_by, one_pairs = nn_bound(one[0], one[2])
+    say(f"nn_search B=1 S={S} T={N}: bit-equal to plain | kernel {one_ms * 1e3:.2f} us, device "
+        + ("not measured" if one_dev_ms is None else f"{one_dev_ms * 1e3:.2f} us")
+        + f", plain {one_plain_ms * 1e3:.2f} us (one call), bound {one_bound_ms * 1e3:.2f} us by "
+        f"{one_bound_by} ({one_pairs} pairs x 8 operations) on {card}")
     say(f"nn_search B={B} S={S} T={N}: bit-equal to plain (idx, sq) on the warped survivors "
         f"({survivor.sum(1).tolist()} valid targets) and on a near-tie cloud | kernel "
         f"{ms * 1e3:.2f} us, device " + ("not measured" if dev_ms is None else
@@ -994,6 +1209,7 @@ def main() -> None:
 
     exact, err_exact = check_exact_placement(spec, rng, card)
     packed, err_packed = check_packed_placement(trainer, spec, rng, card)
+    err_exact = max(err_exact, check_placement_after_larger_call(trainer, spec, rng, card))
     matcher, err_matcher = check_matcher(trainer, spec, scans[0], rng, card)
     soft, err_soft = check_soft_matcher(trainer, rng, card)
     index, err_index = check_index_matcher(trainer, spec, card)
@@ -1043,7 +1259,7 @@ def main() -> None:
                 "launches": launches, "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t.get("bound_by", "bytes"),
-                "library_ms": t["library_ms"]}
+                "library_ms": t["library_ms"], "device_ms": t["device_ms"]}
 
     matcher_src = "delora_tpu_torch/csrc/window_match.cu"
     print(card, flush=True)
@@ -1091,7 +1307,35 @@ def train_rate(epochs: int) -> None:
     print(json.dumps({"pairs_per_s": rates}), flush=True)
 
 
+def serve_rate(rounds: int) -> None:
+    """``--serve-rate ROUNDS`` (see the module docstring)."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.serving.stream import StreamingOdometry
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
+    card = card_line()
+    scans, _ = drive(12, np.random.default_rng(SEED))
+    engine = StreamingOdometry(default_config(), device=torch.device("cuda"))
+    latencies = []
+    for _ in range(rounds):
+        for scan in scans:
+            out = engine.push_scan(scan)
+            if out is not None:
+                check_rigid(out[0])
+                latencies.append(out[2] * 1e3)
+    latencies = latencies[len(scans) - 1:]      # the first round warms up
+    q1, med, q3 = statistics.quantiles(latencies, n=4)
+    say(f"serve-rate: {len(latencies)} scan pairs after a warm-up round of {len(scans)} scans: "
+        f"per-scan latency median {med:.3f} ms, quartiles {q1:.3f}-{q3:.3f} ms on {card}")
+    print(json.dumps({"latency_ms": latencies}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rate"]:
         sys.exit(train_rate(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--serve-rate"]:
+        sys.exit(serve_rate(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--placement-time"]:
+        sys.exit(placement_time())
     sys.exit(main())

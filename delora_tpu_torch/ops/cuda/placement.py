@@ -13,16 +13,27 @@ its range. Empty pixels are zero. Two winner rules:
   exact rule's winner when two ranges of one pixel differ below that.
 
 The CUDA kernel is ``delora_tpu_torch/csrc/placement.cu``; it replaces the TPU
-kernel ``delora_tpu/ops/pallas/placement.py::placement_pallas``.
+kernel ``delora_tpu/ops/pallas/placement.py::placement_pallas``. A call on
+CUDA tensors is kept lean on the host: the ``ctypes`` function is configured
+once, the checks are attribute tests, the stream is read as a raw pointer,
+and the winner keys live in a cached workspace per (device, stream) that the
+kernel leaves clean, so a call allocates only its output and makes at most
+two launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from delora_tpu_torch.ops.cuda.build import load_library
+
+# The packed rule's 32-bit key holds a point index in its low 16 bits.
+PACKED32_MAX_N = 1 << 16
+_INT32_LIMIT = 1 << 31
 
 
 def _check(pix, r, vals, height, width):
@@ -38,8 +49,29 @@ def _check(pix, r, vals, height, width):
         raise ValueError("pix, r and vals must lie on one device")
     if height <= 0 or width <= 0:
         raise ValueError(f"bad image size {height}x{width}")
-    if max(pix.shape[0], pix.shape[1], vals.shape[2] + 1, height * width) >= 2**31:
+    if max(pix.shape[0], pix.shape[1], vals.shape[2] + 1, height * width) >= _INT32_LIMIT:
         raise ValueError("sizes must fit in int32")
+
+
+def _check_launch(pix, r, vals, height, width):
+    """What the kernel needs, as one chain of attribute tests: ranks, shapes,
+    dtypes, one device, contiguity and sizes that fit in int32. On a failure
+    :func:`_check` names the fault; what it passes is the contiguity."""
+    ps, vs, dev = pix.shape, vals.shape, pix.device
+    if not (len(vs) == 3 and vs[:2] == ps and r.shape == ps and pix.dtype is torch.int32
+            and r.dtype is torch.float32 and vals.dtype is torch.float32
+            and r.device == dev and vals.device == dev
+            and pix.is_contiguous() and r.is_contiguous() and vals.is_contiguous()
+            and 0 < height and 0 < width and height * width < _INT32_LIMIT
+            and ps[0] < _INT32_LIMIT and ps[1] < _INT32_LIMIT and vs[2] + 1 < _INT32_LIMIT):
+        _check(pix, r, vals, height, width)
+        raise ValueError("placement kernel needs contiguous inputs")
+
+
+def key_bits(packed: bool, n: int) -> int:
+    """Width of the kernel's winner keys for ``n`` points a batch row: 32 for
+    the packed rule when every point index fits in 16 bits, else 64."""
+    return 32 if packed and n <= PACKED32_MAX_N else 64
 
 
 def _packed_range_key(r: torch.Tensor) -> torch.Tensor:
@@ -82,32 +114,29 @@ def placement(pix, r, vals, height: int, width: int, packed: bool = False,
     """Dense winner placement ``-> [B, H, W, C + append_range]`` float32,
     under the exact or (``packed``) the packed winner rule.
 
-    On CUDA tensors it launches the kernel (and counts the launch in
+    On CUDA tensors it launches the kernel (and counts the call in
     ``placement.launches``); on CPU tensors it runs :func:`placement_plain`.
     Ranges of in-range points must be finite and not -0.0 (exact rule) or
     > 0 (packed rule); projection gives ranges > 0.
     """
-    if pix.device.type == "cpu":
-        return placement_plain(pix, r, vals, height, width, packed, append_range)
-    if pix.device.type != "cuda":
-        raise ValueError(f"placement runs on cuda or cpu, not {pix.device}")
-    _check(pix, r, vals, height, width)
-    if not (pix.is_contiguous() and r.is_contiguous() and vals.is_contiguous()):
-        raise ValueError("placement kernel needs contiguous inputs")
-    lib = _library()
+    dev = pix.device
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return placement_plain(pix, r, vals, height, width, packed, append_range)
+        raise ValueError(f"placement runs on cuda or cpu, not {dev}")
+    _check_launch(pix, r, vals, height, width)
     B, N = pix.shape
-    C = vals.shape[-1]
+    C = vals.shape[2]
     hw = height * width
-    keys = torch.empty(B * hw, dtype=torch.int64, device=pix.device)
-    out = torch.empty(B, height, width, C + int(append_range), dtype=torch.float32,
-                      device=pix.device)
-    with torch.cuda.device(pix.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.placement_launch(
-            pix.data_ptr(), r.data_ptr(), vals.data_ptr(), keys.data_ptr(),
-            out.data_ptr(), B, N, C, hw, int(packed), int(append_range), stream,
-        )
+    index = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    keys = _workspace(index, stream, B * hw, dev)
+    out = vals.new_empty((B, height, width, C + int(append_range)))
+    err = _launcher()(pix.data_ptr(), r.data_ptr(), vals.data_ptr(), keys.data_ptr(),
+                      out.data_ptr(), B, N, C, hw, int(packed), int(key_bits(packed, N) == 32),
+                      int(append_range), index, stream)
     if err != 0:
+        _workspaces.pop((index, stream), None)
         raise RuntimeError(f"placement kernel launch failed with CUDA error {err}")
     placement.launches += 1
     return out
@@ -115,10 +144,26 @@ def placement(pix, r, vals, height: int, width: int, packed: bool = False,
 
 placement.launches = 0
 
+# Winner keys, one buffer per (device index, raw stream), all bytes 0xFF (the
+# empty key at either width) between calls: the kernel's write pass resets
+# every key it reads, so no call fills it. Calls on one stream run in order,
+# so they can share it.
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
-def _library() -> ctypes.CDLL:
-    lib = load_library("placement")
-    fn = lib.placement_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+def _workspace(index: int, stream: int, pixels: int, device) -> torch.Tensor:
+    """At least ``pixels`` 64-bit empty keys for this device and stream."""
+    keys = _workspaces.get((index, stream))
+    if keys is None or keys.numel() < pixels:
+        keys = torch.full((pixels,), -1, dtype=torch.int64, device=device)
+        _workspaces[(index, stream)] = keys
+    return keys
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """``placement_launch`` of the built library, its argument types set once."""
+    fn = load_library("placement").placement_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib
+    return fn

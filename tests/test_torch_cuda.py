@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from delora_tpu_torch.ops import projection as tproj
-from delora_tpu_torch.ops.cuda.placement import placement, placement_plain
+from delora_tpu_torch.ops.cuda import placement as placement_module
+from delora_tpu_torch.ops.cuda.placement import key_bits, placement, placement_plain
 from delora_tpu_torch.ops.cuda.nn_search import nn_search, nn_search_plain
 from delora_tpu_torch.ops.cuda.window_match import (
     window_match,
@@ -90,6 +91,108 @@ def test_packed_placement_kernel_bit_equal_to_plain_on_cuda(cuda, append_range):
     assert placement.launches == before + 1
     assert torch.equal(out, placement_plain(pix, r, vals, H, 64, packed=True,
                                             append_range=append_range))
+
+
+def check_placement(pix, r, vals, height, width, **kw):
+    """One wrapper call: one launch counted, bit-equal to the plain version."""
+    before = placement.launches
+    out = placement(pix, r, vals, height, width, **kw)
+    torch.cuda.synchronize()
+    assert placement.launches == before + 1
+    ref = placement_plain(pix, r, vals, height, width, **kw)
+    assert torch.equal(out, ref)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65536, 65537])
+def test_packed_placement_on_each_side_of_the_key_width_switch(cuda, n):
+    """32-bit keys up to 65,536 points a row, 64-bit beyond. The last point
+    of row 0 is the only one in its pixel, so the largest index a 32-bit key
+    holds (0xFFFF) must come back as the winner."""
+    assert key_bits(True, n) == (32 if n <= 65536 else 64)
+    width = 1024
+    pix, r, vals, _ = pixel_args(cuda, 6, n, width=width)
+    hw = H * width
+    q = int(pix[0, -1])
+    assert q < hw
+    lonely = pix[0] == q
+    lonely[-1] = False
+    pix[0, lonely] = hw
+    for append_range in (False, True):
+        ref = check_placement(pix, r, vals, H, width, packed=True, append_range=append_range)
+        assert torch.equal(ref[0].reshape(hw, -1)[q, :7], vals[0, -1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_placement_with_a_culled_row_and_an_all_empty_call(cuda, packed):
+    pix, r, vals, _ = pixel_args(cuda, 7, 2048)
+    pix[1] = torch.where(torch.arange(2048, device=cuda) % 2 == 0, -1, H * 64).to(torch.int32)
+    ref = check_placement(pix, r, vals, H, 64, packed=packed)
+    assert bool((ref[1] == 0).all()) and bool((ref[0] != 0).any())
+    empty = torch.full_like(pix, -1)
+    ref = check_placement(empty, r, vals, H, 64, packed=packed, append_range=False)
+    assert bool((ref == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("append_range", [False, True])
+@pytest.mark.parametrize("channels", [1, 3, 7])
+def test_placement_channels_and_range_channel(cuda, channels, append_range, packed):
+    pix, r, vals, _ = pixel_args(cuda, 8 + channels, 3000)
+    vals = vals[..., :channels].contiguous()
+    ref = check_placement(pix, r, vals, H, 64, packed=packed, append_range=append_range)
+    assert ref.shape == (2, H, 64, channels + append_range)
+
+
+@pytest.mark.cuda
+def test_placement_workspace_is_clean_after_larger_calls(cuda):
+    """Large, small, large, across both rules and both key widths: the key
+    workspace one call leaves behind must be clean for the next, so a key
+    left over from a larger call would show as a wrong winner."""
+    big = pixel_args(cuda, 9, 131072, width=720)
+    small = pixel_args(cuda, 10, 1500)
+    check_placement(*big[:3], H, 720)
+    check_placement(*small[:3], H, 64, packed=True)
+    check_placement(*big[:3], H, 720, packed=True)
+    check_placement(*small[:3], H, 64)
+    check_placement(*big[:3], H, 720)
+    check_placement(*small[:3], H, 64, packed=True, append_range=False)
+
+
+@pytest.mark.cuda
+def test_placement_on_a_second_stream(cuda):
+    pix, r, vals, _ = pixel_args(cuda, 11, 4096)
+    stream = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    before = placement.launches
+    with torch.cuda.stream(stream):
+        out = placement(pix, r, vals, H, 64, packed=True)
+    stream.synchronize()
+    assert placement.launches == before + 1
+    assert (cuda.index or 0, stream.cuda_stream) in placement_module._workspaces
+    assert torch.equal(out, placement_plain(pix, r, vals, H, 64, packed=True))
+
+
+@pytest.mark.cuda
+def test_placement_error_raises_and_drops_the_workspace(cuda, monkeypatch):
+    """A non-zero CUDA error raises RuntimeError (no fallback) and drops the
+    cached workspace; the next call builds a fresh one and is right. The
+    error is the kernel's refusal of 32-bit keys under the exact rule."""
+    pix, r, vals, _ = pixel_args(cuda, 12, 2048)
+    check_placement(pix, r, vals, H, 64)
+    slot = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    assert slot in placement_module._workspaces
+    monkeypatch.setattr(placement_module, "key_bits", lambda packed, n: 32)
+    before = placement.launches
+    with pytest.raises(RuntimeError):
+        placement(pix, r, vals, H, 64)
+    assert placement.launches == before
+    assert slot not in placement_module._workspaces
+    monkeypatch.undo()
+    check_placement(pix, r, vals, H, 64)
 
 
 def matcher_inputs(cuda, width, seed, batch=2, noise=1.0):

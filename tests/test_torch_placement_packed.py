@@ -136,3 +136,25 @@ def test_plain_packed_winner_rule():
     assert exact.reshape(-1).tolist() == [0.0, 11.0, 13.0]
     with_range = placement_plain(pix, r, vals, 1, 3, packed=True)
     assert with_range.shape == (1, 1, 3, 2) and with_range[0, 0, 1, 1].item() == r0
+
+
+def test_plain_packed_rule_above_65536_points_matches_jax():
+    """Above 65,536 points a row the kernel keys the packed rule in 64 bits
+    (a point index no longer fits in 16); its oracle, the plain version, must
+    still equal the reference's jitted packed projection there, 16-bit
+    near-ties included. 32 rows of 1024 pixels keep every tile of the XLA
+    route under its 3072-entry window, so the reference drops no winner."""
+    height, width, n = 32, 1024, 70_000
+    jspec = jproj.ProjectionSpec(height=height, width=width, **FOV)
+    tspec = tproj.ProjectionSpec(height=height, width=width, **FOV)
+    pts, valid, vals = near_tie_cloud(seed=4, n=n, width=width, batch=1)
+    fn = jax.jit(lambda p, m, v: jproj.project_image_packed(
+        p, m, jspec, values=v, return_overflow=True, append_range=True))
+    ref, overflow = fn(jnp.asarray(pts[0]), jnp.asarray(valid[0]), jnp.asarray(vals[0]))
+    assert int(overflow) == 0
+    image = tproj.project_image_packed_batch(torch.from_numpy(pts), torch.from_numpy(valid),
+                                             tspec, values=torch.from_numpy(vals))
+    np.testing.assert_array_equal(image[0].numpy(), np.asarray(ref))
+    r, _, _, _, pix = tproj._pixel_coords(torch.from_numpy(pts), torch.from_numpy(valid), tspec)
+    exact = placement_plain(pix, r, torch.from_numpy(vals), height, width)
+    assert (exact[0].numpy() != np.asarray(ref)).any(-1).sum() > 20
