@@ -32,12 +32,12 @@ exits non-zero without printing a result:
    - index search (the reverse direction's), B = 8 at 64x720, (5,9): target
      pixels against a warped-source image with its occupancy plane;
    - exact 1-NN, B = 8, S = 46,080 warped survivors against T = 131,072
-     padded target points with the drive's survivor mask, its first scan
-     pair alone (B = 1), and a near-tie cloud with duplicated targets;
+     padded target points with the drive's survivor mask, and a near-tie
+     cloud with duplicated targets, each also at B = 1 (its first row);
    with the time of a wrapper call (CUDA events), the kernels' device time
-   (torch.profiler; the placement's by pass), the plain version's time, the
-   bound and a one-call PyTorch yardstick where there is one (its call and
-   its device time);
+   (torch.profiler; the placement's and the 1-NN's by pass), the plain
+   version's time, the bound and a one-call PyTorch yardstick where there is
+   one (its call and its device time);
 5. serving: ``StreamingOdometry`` at the full width of the default KITTI model
    (bf16 autocast, random weights from a seeded generator) on the first 12
    scans; every relative transform finite and rigid, every scan through the
@@ -93,6 +93,18 @@ yardstick's call and device time, and the host microseconds of the
 wrapper's parts (checks, stream, key workspace or key buffer, output,
 ``ctypes`` launch). It reads the wrapper of this commit or of an older one,
 so the same file, placed beside both, compares them in one call.
+
+    python3 chip_smoke.py --nn-time
+    python3 chip_smoke.py --matcher-time
+
+time the 1-NN (B = 8 and B = 1 on the drive's warped survivors and on the
+near-tie cloud of phase 4f) or the hard window matcher ((5,9) and (9,17) at
+B = 8, the index search, 64x2250 at B = 1, the inputs of phases 4c and 4e)
+alone in a fresh process: each case bit-equal to its plain version, a call
+(CUDA events), the device time by kernel (torch.profiler) and the host
+microseconds of the wrapper's parts. Both flags together run both. Like
+``--placement-time`` they read only long-standing interfaces, so the same
+file times this commit and an older one.
 """
 
 from __future__ import annotations
@@ -116,7 +128,7 @@ SEED = 0
 PLACEMENT_KERNELS = ("select_winners", "write_and_reset")
 MATCHER_KERNELS = ("window_match_hard",)
 SOFT_KERNELS = ("window_match_soft",)
-NN_KERNELS = ("nn_compact_targets", "nn_search")
+NN_KERNELS = ("nn_count_targets", "nn_pack_targets", "nn_search", "nn_finish")
 OPTIMIZER_KERNELS = ("multi_tensor_apply", "adam")
 # Tolerances of the fp32 card step against the CPU step, set before the first
 # run: the card's atan2 and conv sums differ from the CPU's in the last bits,
@@ -191,11 +203,15 @@ def device_kernel_times(fn, calls: int):
 
 def profiled_device_ms(fn, kernel_names=(), calls: int = 50):
     """Device time per call of the named kernels (all device activity if none
-    are named); None when the profiler records no device time."""
-    times, _ = device_kernel_times(fn, calls)
-    total = sum(v for k, v in times.items()
-                if not kernel_names or any(n in k for n in kernel_names))
-    return total if total > 0 else None
+    are named); None when two profiler windows in a row record no device
+    time (one window occasionally comes back empty)."""
+    for _ in range(2):
+        times, _ = device_kernel_times(fn, calls)
+        total = sum(v for k, v in times.items()
+                    if not kernel_names or any(n in k for n in kernel_names))
+        if total > 0:
+            return total
+    return None
 
 
 def kitti_like_cloud(rng: np.random.Generator, n: int, spec) -> np.ndarray:
@@ -361,6 +377,203 @@ def placement_time() -> None:
             f"{sum(lib_dev.values()) * 1e3:.2f} us | host us: "
             + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f" on {card}")
     print(json.dumps({"placement_time": results}), flush=True)
+
+
+def nn_host_split(mod, args):
+    """Host microseconds of the parts of one 1-NN wrapper call, each timed
+    alone, for this tree's lean wrapper or an older one (per-call checks,
+    ``_library()``, the device context, scratch allocated per call)."""
+    src, tgt, valid = args
+    dev = src.device
+    B, S, _ = src.shape
+    T = tgt.shape[1]
+    idx = torch.empty(B, S, dtype=torch.int32, device=dev)
+    sq = torch.empty(B, S, dtype=torch.float32, device=dev)
+    ptrs = (src.data_ptr(), tgt.data_ptr(), valid.data_ptr())
+    few = dict(calls=10, reps=5)
+    parts = {}
+    if hasattr(mod, "_check_launch"):
+        index = dev.index
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        need = mod.scratch_bytes(B, T)
+        keys, scratch = mod._workspace(index, stream, B * S, need, dev)
+        fn = mod._launcher()
+        parts["checks"] = host_us(lambda: mod._check_launch(*args))
+        parts["stream"] = host_us(lambda: torch._C._cuda_getCurrentRawStream(index))
+        parts["workspace"] = host_us(lambda: mod._workspace(index, stream, B * S, need, dev))
+        parts["outputs"] = host_us(lambda: (torch.empty((B, S), dtype=torch.int32, device=dev),
+                                            src.new_empty((B, S))))
+        parts["launch"] = host_us(lambda: fn(*ptrs, keys.data_ptr(), scratch.data_ptr(),
+                                             idx.data_ptr(), sq.data_ptr(), B, S, T, index,
+                                             stream), **few)
+    else:
+        lib = mod._library()
+
+        def stream():
+            with torch.cuda.device(dev):
+                return torch.cuda.current_stream().cuda_stream
+
+        raw = stream()
+        packed = torch.empty(B, T, 4, dtype=torch.float32, device=dev)
+        orig = torch.empty(B, T, dtype=torch.int32, device=dev)
+        count = torch.empty(B, dtype=torch.int32, device=dev)
+        parts["checks"] = host_us(lambda: (mod._check(*args), src.is_contiguous(),
+                                           tgt.is_contiguous(), valid.is_contiguous()))
+        parts["library"] = host_us(mod._library)
+        parts["stream"] = host_us(stream)
+        parts["scratch"] = host_us(lambda: (
+            torch.empty(B, T, 4, dtype=torch.float32, device=dev),
+            torch.empty(B, T, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev)))
+        parts["outputs"] = host_us(lambda: (torch.empty(B, S, dtype=torch.int32, device=dev),
+                                            torch.empty(B, S, dtype=torch.float32, device=dev)))
+        parts["launch"] = host_us(lambda: lib.nn_search_launch(
+            *ptrs, packed.data_ptr(), orig.data_ptr(), count.data_ptr(), idx.data_ptr(),
+            sq.data_ptr(), B, S, T, raw), **few)
+    parts["call"] = host_us(lambda: mod.nn_search(*args), **few)
+    return parts
+
+
+def matcher_host_split(mod, name, args):
+    """Host microseconds of the parts of one hard matcher wrapper call
+    (``window_match`` or ``window_match_indices``), each timed alone, for
+    this tree's lean wrapper or an older one."""
+    src, xyz, third, window = args
+    index_search = name == "window_match_indices"
+    B, Hh, Ww, _ = src.shape
+    dev = src.device
+    outs = (torch.empty(B, Hh, Ww, device=dev),
+            None if index_search else torch.empty(B, Hh, Ww, 3, device=dev),
+            None if index_search else torch.empty(B, Hh, Ww, 3, device=dev),
+            torch.empty(B, Hh, Ww, dtype=torch.int32, device=dev) if index_search else None)
+    ptrs = tuple(0 if t is None else t.data_ptr() for t in outs)
+    nrm, occ = (None, third) if index_search else (third, None)
+
+    def views():
+        return (*mod._view(src, "src"), *mod._view(xyz, "xyz"), *mod._view(nrm, "nrm"),
+                *mod._view(occ, "occ")) if not hasattr(mod, "_check_launch") else (
+            *mod._view(src), *mod._view(xyz), *mod._view(nrm), *mod._view(occ))
+
+    def outputs():
+        if index_search:
+            return (src.new_empty(src.shape[:3]),
+                    torch.empty(src.shape[:3], dtype=torch.int32, device=dev))
+        return src.new_empty(src.shape[:3]), src.new_empty(src.shape), src.new_empty(src.shape)
+
+    parts = {}
+    if hasattr(mod, "_check_launch"):
+        index = dev.index
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        third_name = "cand_occ" if index_search else "tgt_nrm"
+        fn = mod._launchers()[0]
+        v = views()
+        parts["checks"] = host_us(lambda: mod._check_launch(window, src, xyz, third, third_name))
+        parts["stream"] = host_us(lambda: torch._C._cuda_getCurrentRawStream(index))
+        parts["outputs"] = host_us(outputs)
+        parts["views"] = host_us(views)
+        parts["launch"] = host_us(lambda: fn(*v, *ptrs, B, Hh, Ww, window[0], window[1], index,
+                                             stream))
+    else:
+        lib = mod._library()
+
+        def stream():
+            with torch.cuda.device(dev):
+                return torch.cuda.current_stream().cuda_stream
+
+        raw = stream()
+        v = views()
+        kw = {"cand_xyz": xyz, "cand_occ": third} if index_search else {"tgt_xyz": xyz,
+                                                                         "tgt_nrm": third}
+        parts["checks"] = host_us(lambda: mod._check(window, src, **kw))
+        parts["library"] = host_us(mod._library)
+        parts["stream"] = host_us(stream)
+        parts["outputs"] = host_us(outputs)
+        parts["views"] = host_us(views)
+        parts["launch"] = host_us(lambda: lib.window_match_launch(
+            *v, *ptrs, B, Hh, Ww, window[0], window[1], raw))
+    parts["call"] = host_us(lambda: getattr(mod, name)(*args))
+    return parts
+
+
+def matcher_cases(trainer, spec, scan, rng):
+    """The hard matcher's inputs: (wrapper name, args) by label. The train
+    batch's target images (duplicated columns, empty rows) against noisy
+    copies held as the xyz slice of [B, H, W, 7] images, windows (5,9) and
+    (9,17) at B = 8; the index search of the reverse term (the target
+    images' pixels against a warped-source image and its occupancy plane);
+    one ray-cast scan at 64x2250, B = 1."""
+    from delora_tpu_torch.ops.projection import (
+        ProjectionSpec,
+        project_image,
+        project_image_packed_batch,
+    )
+
+    dev = trainer.device
+    idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=dev)
+    src, tgt, nrm = matcher_inputs(trainer.tables.image[idx], trainer.tables.normal_image[idx],
+                                   rng)
+    pos, valid, vals = warped_survivors(trainer)
+    payload = torch.cat([pos, vals[..., 3:7]], -1).contiguous()    # warped xyz, normal, 1
+    wimage = project_image_packed_batch(pos, valid, spec, values=payload, append_range=False)
+    query = trainer.tables.image[idx][..., 0:3]
+    wide = ProjectionSpec(spec.height, 2250, spec.fov_up, spec.fov_down, spec.fov_left,
+                          spec.fov_right)
+    pts = torch.from_numpy(np.ascontiguousarray(scan[:, :3])).to(dev)
+    image = project_image(pts, torch.ones(len(pts), dtype=torch.bool, device=dev), wide)[None]
+    normals = torch.from_numpy(rng.normal(size=(1, spec.height, 2250, 3))
+                               .astype(np.float32)).to(dev)
+    wsrc, wtgt, wnrm = matcher_inputs(image, normals, rng)
+    B = src.shape[0]
+    return {f"hard (5, 9) B={B}": ("window_match", (src, tgt, nrm, (5, 9))),
+            f"hard (9, 17) B={B}": ("window_match", (src, tgt, nrm, (9, 17))),
+            f"index (5, 9) B={B}": ("window_match_indices",
+                                    (query, wimage[..., 0:3], wimage[..., 6], (5, 9))),
+            "hard (5, 9) B=1 64x2250": ("window_match", (wsrc, wtgt, wnrm, (5, 9)))}
+
+
+def kernel_time(nn: bool, matcher: bool) -> None:
+    """``--nn-time`` / ``--matcher-time`` (see the module docstring)."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.ops.cuda import nn_search as nn_mod
+    from delora_tpu_torch.ops.cuda import window_match as wm_mod
+    from delora_tpu_torch.ops.projection import ProjectionSpec
+    from delora_tpu_torch.training.trainer import Trainer
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
+    card = card_line()
+    say(f"kernel-time: {nn_mod.__file__} | torch {torch.__version__} on {card}")
+    rng = np.random.default_rng(SEED)
+    scans, normals = drive(24, rng)
+    config = default_config({"batch_size": TRAIN_B})
+    spec = ProjectionSpec.from_config(config)
+    trainer = Trainer(config, [list(zip(scans, normals))], device="cuda",
+                      generator=torch.Generator().manual_seed(SEED))
+    results = {}
+
+    def measure(label, call, calls, host):
+        ms = cuda_ms(call, reps=5 if calls < 20 else 25, inner=3 if calls < 20 else 20)
+        passes = passes_us(call, calls)
+        results[label] = dict(ms=ms, device_us=sum(passes.values()), passes=passes, host_us=host)
+        say(f"{label}: bit-equal to plain | call {ms * 1e3:.2f} us, device "
+            f"{sum(passes.values()):.2f} us (" + ", ".join(f"{k} {v:.2f} us" for k, v in
+                                                          passes.items())
+            + ") | host us: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+            + f" on {card}")
+
+    if nn:
+        for label, args in nn_cases(trainer, scans, normals, spec, rng).items():
+            require_equal(f"nn_search {label}", nn_mod.nn_search(*args),
+                          nn_mod.nn_search_plain(*args))
+            measure(f"nn_search {label}", lambda args=args: nn_mod.nn_search(*args), 5,
+                    nn_host_split(nn_mod, args))
+    if matcher:
+        for label, (name, args) in matcher_cases(trainer, spec, scans[0], rng).items():
+            fn = getattr(wm_mod, name)
+            require_equal(label, fn(*args), getattr(wm_mod, name + "_plain")(*args))
+            measure(label, lambda fn=fn, args=args: fn(*args), 50,
+                    matcher_host_split(wm_mod, name, args))
+    print(json.dumps({"kernel_time": results}), flush=True)
 
 
 def drive(n_scans: int, rng: np.random.Generator):
@@ -817,11 +1030,25 @@ def nn_bound(src, valid_tgt):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), pairs
 
 
-def check_nn_search(trainer, scans, normals, spec, rng, card):
-    """Phase 4f: the exact 1-NN at the brute path's shape: the train batch's
-    warped survivors against the padded target clouds and their survivor
-    masks; then a near-tie cloud with duplicated targets."""
-    from delora_tpu_torch.ops.cuda.nn_search import nn_search, nn_search_plain
+def kernel_label(key: str) -> str:
+    """A profiler kernel name without its namespace and arguments."""
+    key = key.replace("(anonymous namespace)::", "")
+    return (key[5:] if key.startswith("void ") else key).split("(")[0]
+
+
+def passes_us(call, calls: int):
+    """Device microseconds per call of each kernel ``call`` launches
+    (torch.profiler), by kernel name."""
+    times, _ = device_kernel_times(call, calls)
+    return {kernel_label(k): v * 1e3 for k, v in times.items()}
+
+
+def nn_cases(trainer, scans, normals, spec, rng):
+    """The 1-NN's inputs at the brute path's shapes: the train batch's warped
+    survivors against the padded target clouds (N points) and their survivor
+    masks, and a near-tie cloud (targets with 10% exact duplicates and points
+    1e-4 nearer on their rays, a third valid; sources near random targets);
+    each at B = 8 and, as its first row, B = 1. -> {label: (src, tgt, valid)}."""
     from delora_tpu_torch.ops.projection import project_scan_batch
     from delora_tpu_torch.training.trainer import padded_scan
 
@@ -831,46 +1058,51 @@ def check_nn_search(trainer, scans, normals, spec, rng, card):
     pts = torch.from_numpy(np.stack([p for p, _, _ in padded])).to(dev)
     mask = torch.from_numpy(np.stack([m for _, _, m in padded])).to(dev)
     survivor = project_scan_batch(pts, mask, spec).survivor
-    args = (pos, pts, survivor)
-    out = nn_search(*args)
-    ref = []
-    plain_ms = once_ms(lambda: ref.extend(nn_search_plain(*args)))
-    err = require_equal("nn_search (warped survivors)", out, ref)
-    # A near-tie cloud: targets with 10% exact duplicates and points 1e-4
-    # nearer on their rays, a third valid; sources near random targets.
     B, S, _ = pos.shape
     tie_t = torch.from_numpy(np.stack([near_tie_cloud(rng, N, spec) for _ in range(B)])).to(dev)
     tie_v = torch.from_numpy(rng.random((B, N)) < 0.35).to(dev)
     pick = torch.from_numpy(rng.integers(0, N, (B, S))).to(dev)
     noise = torch.from_numpy(rng.normal(0, 0.01, (B, S, 3)).astype(np.float32)).to(dev)
     tie_s = (torch.gather(tie_t, 1, pick[..., None].expand(-1, -1, 3)) + noise).contiguous()
-    tie_args = (tie_s, tie_t, tie_v)
-    err = max(err, require_equal("nn_search (near-tie cloud)", nn_search(*tie_args),
-                                 nn_search_plain(*tie_args)))
-    ms = cuda_ms(lambda: nn_search(*args), reps=5, inner=3)
-    dev_ms = profiled_device_ms(lambda: nn_search(*args), NN_KERNELS, calls=5)
-    bound_ms, bound_by, pairs = nn_bound(pos, survivor)
-    # One scan pair (B = 1): the reference's unbatched kernel's work, which
-    # the port's batched kernel also serves.
-    one = tuple(a[:1] for a in args)
-    one_ref = []
-    one_plain_ms = once_ms(lambda: one_ref.extend(nn_search_plain(*one)))
-    err = max(err, require_equal("nn_search B=1", nn_search(*one), one_ref))
-    one_ms = cuda_ms(lambda: nn_search(*one), reps=5, inner=3)
-    one_dev_ms = profiled_device_ms(lambda: nn_search(*one), NN_KERNELS, calls=5)
-    one_bound_ms, one_bound_by, one_pairs = nn_bound(one[0], one[2])
-    say(f"nn_search B=1 S={S} T={N}: bit-equal to plain | kernel {one_ms * 1e3:.2f} us, device "
-        + ("not measured" if one_dev_ms is None else f"{one_dev_ms * 1e3:.2f} us")
-        + f", plain {one_plain_ms * 1e3:.2f} us (one call), bound {one_bound_ms * 1e3:.2f} us by "
-        f"{one_bound_by} ({one_pairs} pairs x 8 operations) on {card}")
-    say(f"nn_search B={B} S={S} T={N}: bit-equal to plain (idx, sq) on the warped survivors "
-        f"({survivor.sum(1).tolist()} valid targets) and on a near-tie cloud | kernel "
-        f"{ms * 1e3:.2f} us, device " + ("not measured" if dev_ms is None else
-                                          f"{dev_ms * 1e3:.2f} us")
-        + f", plain {plain_ms * 1e3:.2f} us (one call), bound {bound_ms * 1e3:.2f} us by "
-        f"{bound_by} ({pairs} pairs x 8 operations) on {card}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                device_ms=dev_ms), err
+    cases = {}
+    for name, args in (("survivors", (pos, pts, survivor)), ("near-tie", (tie_s, tie_t, tie_v))):
+        cases[f"{name} B={B}"] = args
+        cases[f"{name} B=1"] = tuple(a[:1] for a in args)
+    return cases
+
+
+def check_nn_search(trainer, scans, normals, spec, rng, card):
+    """Phase 4f: the exact 1-NN at the brute path's shape (B = 8) and at
+    B = 1, on the train batch's warped survivors and on a near-tie cloud,
+    bit-equal to its plain version; timed on the survivors."""
+    from delora_tpu_torch.ops.cuda.nn_search import nn_search, nn_search_plain
+
+    cases = nn_cases(trainer, scans, normals, spec, rng)
+    err, timing = 0.0, None
+    for label, args in cases.items():
+        out = nn_search(*args)
+        ref = []
+        plain_ms = once_ms(lambda: ref.extend(nn_search_plain(*args)))
+        err = max(err, require_equal(f"nn_search ({label})", out, ref))
+        if not label.startswith("survivors"):
+            say(f"nn_search {label}: bit-equal to plain (idx, sq) on {card}")
+            continue
+        B, S, _ = args[0].shape
+        ms = cuda_ms(lambda: nn_search(*args), reps=5, inner=3)
+        passes = {k: v for k, v in passes_us(lambda: nn_search(*args), 5).items()
+                  if any(n in k for n in NN_KERNELS)}
+        dev_ms = sum(passes.values()) / 1e3 or None
+        bound_ms, bound_by, pairs = nn_bound(args[0], args[2])
+        say(f"nn_search {label} S={S} T={N}: bit-equal to plain (idx, sq), "
+            f"{args[2].sum(1).tolist()} valid targets | kernel {ms * 1e3:.2f} us, device "
+            + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us = " + " + ".join(
+                f"{k} {v:.2f} us" for k, v in passes.items()))
+            + f", plain {plain_ms * 1e3:.2f} us (one call), bound {bound_ms * 1e3:.2f} us by "
+            f"{bound_by} ({pairs} pairs x 8 operations) on {card}")
+        if B == TRAIN_B:
+            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                          bound_by=bound_by, device_ms=dev_ms)
+    return timing, err
 
 
 def run_serving(config, scans, spec, card):
@@ -1338,4 +1570,6 @@ if __name__ == "__main__":
         sys.exit(serve_rate(int(sys.argv[2])))
     if sys.argv[1:2] == ["--placement-time"]:
         sys.exit(placement_time())
+    if sys.argv[1:2] in (["--nn-time"], ["--matcher-time"]):
+        sys.exit(kernel_time("--nn-time" in sys.argv[1:], "--matcher-time" in sys.argv[1:]))
     sys.exit(main())

@@ -19,21 +19,30 @@ kernel ``_nn_kernel`` as launched by ``_nn_search_single`` and
 1-NN, chosen by ``use_pallas_nn`` (the Pallas kernel, or an XLA matmul
 formula); the port has one, this search, and no backend knob. Nothing here
 carries gradients: the search is detached, as in the reference.
+
+A call on CUDA tensors is kept lean on the host, as the placement's: the
+``ctypes`` function is configured once, the checks are attribute tests, the
+stream is read as a raw pointer, and the kernel's scratch (packed targets)
+and its per-source winner keys live in a cached workspace per (device,
+stream) that the kernel leaves clean, so a call allocates only its outputs.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from delora_tpu_torch.ops.cuda.build import load_library
-from delora_tpu_torch.ops.cuda.window_match import fma_exact, squared_distance
+from delora_tpu_torch.ops.exact import fma_exact, squared_distance
 
 BIG = 1e30
-
-
+_SIZE_LIMIT = 2**31 // 4
+# Target slots one block of the kernel's count and pack passes covers
+# (kChunk in csrc/nn_search.cu); it sizes the scratch.
+_CHUNK = 2048
 
 
 def _check(src, tgt, valid):
@@ -50,8 +59,31 @@ def _check(src, tgt, valid):
         raise ValueError("src, tgt and valid must lie on one device")
     if tgt.shape[1] < 1:
         raise ValueError("the search needs at least one target slot")
-    if max(src.shape[1], tgt.shape[1]) >= 2**31 // 4:
+    if max(src.shape[1], tgt.shape[1]) >= _SIZE_LIMIT:
         raise ValueError("sizes must fit in int32")
+
+
+def _check_launch(src, tgt, valid):
+    """What the kernel needs, as one chain of attribute tests: ranks, shapes,
+    dtypes, one device, at least one target slot, sizes that fit in int32 and
+    contiguity. On a failure :func:`_check` names the fault; what it passes
+    is the contiguity."""
+    ss, ts, dev = src.shape, tgt.shape, src.device
+    if not (len(ss) == 3 and len(ts) == 3 and ss[2] == 3 and ts[2] == 3 and ts[0] == ss[0]
+            and valid.shape == ts[:2] and src.dtype is torch.float32
+            and tgt.dtype is torch.float32 and valid.dtype is torch.bool
+            and tgt.device == dev and valid.device == dev
+            and 0 < ts[1] < _SIZE_LIMIT and ss[1] < _SIZE_LIMIT
+            and src.is_contiguous() and tgt.is_contiguous() and valid.is_contiguous()):
+        _check(src, tgt, valid)
+        raise ValueError("nn_search kernel needs contiguous inputs")
+
+
+def scratch_bytes(batch: int, slots: int) -> int:
+    """Bytes of the kernel's scratch for ``batch`` rows of ``slots`` target
+    slots: packed targets (16 B a slot), their indices (4 B a slot), a count
+    a row and one a chunk of slots (the layout ``nn_search_launch`` carves)."""
+    return batch * slots * 20 + batch * 4 + batch * -(-slots // _CHUNK) * 4
 
 
 def nn_search_plain(src, tgt, valid, chunk: int = 1 << 22
@@ -87,31 +119,27 @@ def nn_search(src, tgt, valid) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact 1-NN ``[B, S, 3], [B, T, 3], [B, T] bool -> (idx [B, S] int32,
     sq [B, S] float32)`` (see the module docstring).
 
-    On CUDA tensors it launches the kernel (and counts the launch in
+    On CUDA tensors it launches the kernel (and counts the call in
     ``nn_search.launches``); on CPU tensors it runs :func:`nn_search_plain`.
     """
-    if src.device.type == "cpu":
-        return nn_search_plain(src, tgt, valid)
-    if src.device.type != "cuda":
-        raise ValueError(f"nn_search runs on cuda or cpu, not {src.device}")
-    _check(src, tgt, valid)
-    if not (src.is_contiguous() and tgt.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("nn_search kernel needs contiguous inputs")
+    dev = src.device
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return nn_search_plain(src, tgt, valid)
+        raise ValueError(f"nn_search runs on cuda or cpu, not {dev}")
+    _check_launch(src, tgt, valid)
     B, S, _ = src.shape
     T = tgt.shape[1]
-    dev = src.device
-    packed = torch.empty(B, T, 4, dtype=torch.float32, device=dev)
-    orig = torch.empty(B, T, dtype=torch.int32, device=dev)
-    count = torch.empty(B, dtype=torch.int32, device=dev)
-    idx = torch.empty(B, S, dtype=torch.int32, device=dev)
-    sq = torch.empty(B, S, dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.nn_search_launch(
-            src.data_ptr(), tgt.data_ptr(), valid.data_ptr(), packed.data_ptr(),
-            orig.data_ptr(), count.data_ptr(), idx.data_ptr(), sq.data_ptr(), B, S, T,
-            torch.cuda.current_stream().cuda_stream)
+    index = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    keys, scratch = _workspace(index, stream, B * S, scratch_bytes(B, T), dev)
+    idx = torch.empty((B, S), dtype=torch.int32, device=dev)
+    sq = src.new_empty((B, S))
+    err = _launcher()(src.data_ptr(), tgt.data_ptr(), valid.data_ptr(), keys.data_ptr(),
+                      scratch.data_ptr(), idx.data_ptr(), sq.data_ptr(), B, S, T, index,
+                      stream)
     if err != 0:
+        _workspaces.pop((index, stream), None)
         raise RuntimeError(f"nn_search kernel launch failed with CUDA error {err}")
     nn_search.launches += 1
     return idx, sq
@@ -119,10 +147,33 @@ def nn_search(src, tgt, valid) -> Tuple[torch.Tensor, torch.Tensor]:
 
 nn_search.launches = 0
 
+# (winner keys, scratch), one pair per (device index, raw stream). The keys
+# are 64-bit words with every bit set (the empty key) between calls: the
+# kernel's finishing pass resets each key it reads, so no call fills them.
+# Calls on one stream run in order, so they can share the pair.
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
-def _library() -> ctypes.CDLL:
-    lib = load_library("nn_search")
-    fn = lib.nn_search_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+def _workspace(index: int, stream: int, keys_needed: int, scratch_needed: int, device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """At least ``keys_needed`` empty keys and ``scratch_needed`` bytes of
+    scratch for this device and stream; each grows on its own."""
+    pair = _workspaces.get((index, stream))
+    if pair is None or pair[0].numel() < keys_needed or pair[1].numel() < scratch_needed:
+        keys, scratch = pair if pair is not None else (None, None)
+        if keys is None or keys.numel() < keys_needed:
+            keys = torch.full((keys_needed,), -1, dtype=torch.int64, device=device)
+        if scratch is None or scratch.numel() < scratch_needed:
+            scratch = torch.empty(scratch_needed, dtype=torch.uint8, device=device)
+        pair = keys, scratch
+        _workspaces[(index, stream)] = pair
+    return pair
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """``nn_search_launch`` of the built library, its argument types set once."""
+    fn = load_library("nn_search").nn_search_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib
+    return fn

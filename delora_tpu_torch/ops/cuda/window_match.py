@@ -35,11 +35,16 @@ channel slice of a wider channels-last tensor (for example the xyz of a
 ``[B, H, W, 7]`` image), read in place, and so may the ``[B, H, W]``
 occupancy plane. Nothing here carries gradients: the searches are detached,
 as in the reference.
+
+A call on CUDA tensors is kept lean on the host, as the placement's: the
+``ctypes`` functions are configured once, the checks are attribute tests and
+the stream is read as a raw pointer; a call allocates only its outputs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -47,6 +52,16 @@ import torch
 import torch.nn.functional as F
 
 from delora_tpu_torch.ops.cuda.build import load_library
+from delora_tpu_torch.ops.exact import squared_distance
+
+# The hard kernel's block: _TILE_H rows of _TILE_W query pixels, two rows a
+# thread, whose windows' candidates it stages in shared memory (kTileH,
+# kTileW in csrc/window_match.cu); a block may take at most
+# _SMEM_LIMIT bytes on the H100, which bounds the window the kernel takes.
+_TILE_H, _TILE_W = 8, 64
+_SMEM_LIMIT = 232448
+_MAX_HEIGHT = _TILE_H * 65535       # the grid's rows of tiles
+_INT32_LIMIT = 2**31
 
 
 def _strides(t: torch.Tensor, name: str) -> Tuple[int, int]:
@@ -80,6 +95,48 @@ def _check(window, src, **others):
         raise ValueError("sizes must fit in int32")
 
 
+def smem_bytes(window) -> int:
+    """Shared memory of one block of the hard kernel for ``window``: its
+    candidate halo, 16 B a cell."""
+    wv, wu = window
+    return (_TILE_H + wv - 1) * (_TILE_W + wu - 1) * 16
+
+
+def _fits(t: torch.Tensor, shape, dev) -> bool:
+    """A float32 ``[B, H, W, 3]`` view with contiguous channels, or a
+    ``[B, H, W]`` plane, of ``shape`` on ``dev``, its pixels evenly spaced."""
+    st = t.stride()
+    return (t.dtype is torch.float32 and t.shape == shape and t.device == dev
+            and st[1] == shape[2] * st[2] and (len(shape) == 3 or st[3] == 1))
+
+
+def _check_launch(window, src, xyz, third, third_name: str, hard: bool = True):
+    """What a kernel needs, as one chain of attribute tests: ``src`` and the
+    candidates' ``xyz`` ``[B, H, W, 3]``, ``third`` the normals (same shape)
+    or, named ``cand_occ``, the occupancy plane ``[B, H, W]``; float32 on one
+    device, channels contiguous, pixels evenly spaced; an odd window; sizes
+    within int32; for the hard kernel, a halo that fits a block's shared
+    memory and at most _MAX_HEIGHT rows. On a failure the long checks name
+    the fault."""
+    ss, dev = src.shape, src.device
+    wv, wu = window
+    third_shape = ss[:3] if third_name == "cand_occ" else ss
+    if not (len(ss) == 4 and ss[3] == 3 and _fits(src, ss, dev) and _fits(xyz, ss, dev)
+            and _fits(third, third_shape, dev) and wv % 2 == 1 and wu % 2 == 1 and wv > 0
+            and wu > 0 and src.numel() < _INT32_LIMIT
+            and (not hard or (ss[1] <= _MAX_HEIGHT and smem_bytes(window) <= _SMEM_LIMIT))):
+        _check(window, src, **{"candidate xyz": xyz, third_name: third})
+        for name, t in (("src", src), ("candidate xyz", xyz), (third_name, third)):
+            _strides(t, name)
+        if hard and ss[1] > _MAX_HEIGHT:
+            raise ValueError(f"the kernel takes images of at most {_MAX_HEIGHT} rows")
+        if hard and smem_bytes(window) > _SMEM_LIMIT:
+            raise ValueError(f"window {tuple(window)} is too large for the kernel: its halo "
+                             f"needs {smem_bytes(window)} bytes of shared memory, a block may "
+                             f"take {_SMEM_LIMIT}")
+        raise ValueError(f"{third_name} must be {tuple(third_shape)}, got {tuple(third.shape)}")
+
+
 def _device(src: torch.Tensor, name: str) -> bool:
     """True where the kernel runs (CUDA), False for the plain version (CPU)."""
     if src.device.type == "cpu":
@@ -87,30 +144,6 @@ def _device(src: torch.Tensor, name: str) -> bool:
     if src.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {src.device}")
     return True
-
-
-def fma_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """fma(a, b, c) of float32 tensors, rounded once, as the card's fmaf.
-
-    a * b is exact in float64. The float64 sum is formed with round-to-odd
-    (its exact error by TwoSum decides the last bit), so the final rounding
-    to float32 is the single rounding of the exact a * b + c."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bp = s - c
-    err = (c - (s - bp)) + (p - bp)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.float()
-
-
-def squared_distance(d: torch.Tensor) -> torch.Tensor:
-    """|d|^2 over the last axis as the reference's compiled matcher forms it:
-    fma(dz, dz, fma(dy, dy, dx * dx)), each fma rounded once to float32."""
-    x, y, z = d.unbind(-1)
-    return fma_exact(z, z, fma_exact(y, y, x * x))
 
 
 _TINY = float(np.finfo(np.float32).tiny)
@@ -232,11 +265,11 @@ def window_match(src, tgt_xyz, tgt_nrm, window):
     """
     if not _device(src, "window_match"):
         return window_match_plain(src, tgt_xyz, tgt_nrm, window)
-    _check(window, src, tgt_xyz=tgt_xyz, tgt_nrm=tgt_nrm)
-    B, H, W, _ = src.shape
-    best_sq = torch.empty(B, H, W, dtype=torch.float32, device=src.device)
-    best_xyz = torch.empty(B, H, W, 3, dtype=torch.float32, device=src.device)
-    best_nrm = torch.empty_like(best_xyz)
+    _check_launch(window, src, tgt_xyz, tgt_nrm, "tgt_nrm")
+    shape = src.shape
+    best_sq = src.new_empty(shape[:3])
+    best_xyz = src.new_empty(shape)
+    best_nrm = src.new_empty(shape)
     _launch_hard(src, tgt_xyz, tgt_nrm, None, best_sq, best_xyz, best_nrm, None, window)
     window_match.launches += 1
     return best_sq, best_xyz, best_nrm
@@ -253,10 +286,9 @@ def window_match_indices(src, cand_xyz, cand_occ, window):
     """
     if not _device(src, "window_match_indices"):
         return window_match_indices_plain(src, cand_xyz, cand_occ, window)
-    _check(window, src, cand_xyz=cand_xyz, cand_occ=cand_occ)
-    B, H, W, _ = src.shape
-    best_sq = torch.empty(B, H, W, dtype=torch.float32, device=src.device)
-    best_k = torch.empty(B, H, W, dtype=torch.int32, device=src.device)
+    _check_launch(window, src, cand_xyz, cand_occ, "cand_occ")
+    best_sq = src.new_empty(src.shape[:3])
+    best_k = torch.empty(src.shape[:3], dtype=torch.int32, device=src.device)
     _launch_hard(src, cand_xyz, None, cand_occ, best_sq, None, None, best_k, window)
     window_match_indices.launches += 1
     return best_k, best_sq
@@ -274,17 +306,16 @@ def window_match_soft(src, tgt_xyz, tgt_nrm, window, sigma: float):
         raise ValueError(f"the soft matcher needs sigma > 0, got {sigma}")
     if not _device(src, "window_match_soft"):
         return window_match_soft_plain(src, tgt_xyz, tgt_nrm, window, sigma)
-    _check(window, src, tgt_xyz=tgt_xyz, tgt_nrm=tgt_nrm)
-    B, H, W, _ = src.shape
-    best_sq = torch.empty(B, H, W, dtype=torch.float32, device=src.device)
-    best_xyz = torch.empty(B, H, W, 3, dtype=torch.float32, device=src.device)
-    best_nrm = torch.empty_like(best_xyz)
-    lib = _library()
-    with torch.cuda.device(src.device):
-        err = lib.window_match_soft_launch(
-            *_view(src, "src"), *_view(tgt_xyz, "tgt_xyz"), *_view(tgt_nrm, "tgt_nrm"),
-            best_sq.data_ptr(), best_xyz.data_ptr(), best_nrm.data_ptr(), B, H, W,
-            window[0], window[1], inv_tau(sigma), torch.cuda.current_stream().cuda_stream)
+    _check_launch(window, src, tgt_xyz, tgt_nrm, "tgt_nrm", hard=False)
+    shape = src.shape
+    best_sq = src.new_empty(shape[:3])
+    best_xyz = src.new_empty(shape)
+    best_nrm = src.new_empty(shape)
+    index = src.device.index
+    err = _launchers()[1](
+        *_view(src), *_view(tgt_xyz), *_view(tgt_nrm), best_sq.data_ptr(), best_xyz.data_ptr(),
+        best_nrm.data_ptr(), shape[0], shape[1], shape[2], window[0], window[1], inv_tau(sigma),
+        index, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"window_match_soft kernel launch failed with CUDA error {err}")
     window_match_soft.launches += 1
@@ -296,9 +327,9 @@ window_match_indices.launches = 0
 window_match_soft.launches = 0
 
 
-def _view(t, name):
+def _view(t):
     """(pointer, batch stride, pixel stride) of a kernel input; null if None."""
-    return (0, 0, 0) if t is None else (t.data_ptr(), *_strides(t, name))
+    return (0, 0, 0) if t is None else (t.data_ptr(), t.stride(0), t.stride(2))
 
 
 def _launch_hard(src, txyz, tnrm, occ, out_sq, out_xyz, out_nrm, out_k, window):
@@ -307,24 +338,26 @@ def _launch_hard(src, txyz, tnrm, occ, out_sq, out_xyz, out_nrm, out_k, window):
         return 0 if t is None else t.data_ptr()
 
     B, H, W, _ = src.shape
-    lib = _library()
-    with torch.cuda.device(src.device):
-        err = lib.window_match_launch(
-            *_view(src, "src"), *_view(txyz, "candidate xyz"), *_view(tnrm, "tgt_nrm"),
-            *_view(occ, "occupancy"), ptr(out_sq), ptr(out_xyz), ptr(out_nrm), ptr(out_k),
-            B, H, W, window[0], window[1], torch.cuda.current_stream().cuda_stream)
+    index = src.device.index
+    err = _launchers()[0](
+        *_view(src), *_view(txyz), *_view(tnrm), *_view(occ), ptr(out_sq), ptr(out_xyz),
+        ptr(out_nrm), ptr(out_k), B, H, W, window[0], window[1], index,
+        torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"window_match kernel launch failed with CUDA error {err}")
 
 
-def _library() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _launchers():
+    """(``window_match_launch``, ``window_match_soft_launch``) of the built
+    library, their argument types set once."""
     lib = load_library("window_match")
     view = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-    lib.window_match_launch.argtypes = (view * 4 + [ctypes.c_void_p] * 4
-                                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.window_match_launch.restype = ctypes.c_int
-    lib.window_match_soft_launch.argtypes = (view * 3 + [ctypes.c_void_p] * 3
-                                             + [ctypes.c_int] * 5
-                                             + [ctypes.c_float, ctypes.c_void_p])
-    lib.window_match_soft_launch.restype = ctypes.c_int
-    return lib
+    hard = lib.window_match_launch
+    hard.argtypes = view * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    hard.restype = ctypes.c_int
+    soft = lib.window_match_soft_launch
+    soft.argtypes = (view * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    soft.restype = ctypes.c_int
+    return hard, soft

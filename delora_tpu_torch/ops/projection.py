@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from delora_tpu_torch.ops.cuda.placement import placement
+from delora_tpu_torch.ops.exact import fma_exact
 
 
 class ProjectionSpec(NamedTuple):
@@ -63,14 +64,18 @@ def _scale(span: float, cells: int) -> float:
     return float(np.float32(np.float32(1.0) / np.float32(span)) * np.float32(cells))
 
 
+def _horizontal_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    # x*x + y*y as the reference computes it: the compiler contracts it into
+    # fma(x, x, y*y), one rounding, which fma_exact reproduces. (A float64 sum
+    # rounded to f32 rounds twice where x*x + f32(y*y) lies within half a
+    # float64 ulp above or below a float32 midpoint.)
+    return fma_exact(x, x, y * y)
+
+
 def _horizontal_norm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    # sqrt(x*x + y*y) as the reference computes it: the compiler contracts it
-    # into fma(x, x, y*y), one rounding. x*x is exact in float64, so the f64
-    # sum rounded to f32 is the fused result (but for double-rounding cases,
-    # about one input in 2**29); the f64 sqrt rounded to f32 is the correctly
-    # rounded f32 sqrt.
-    xy = (x.double() * x.double() + (y * y).double()).float()
-    return xy.double().sqrt().float()
+    # The f64 sqrt of the f32 sum, rounded to f32, is the correctly rounded
+    # f32 sqrt.
+    return _horizontal_sq(x, y).double().sqrt().float()
 
 
 def compute_uv(points: torch.Tensor, spec: ProjectionSpec):

@@ -293,3 +293,184 @@ def test_nn_search_kernel_bit_equal_to_plain_on_cuda(cuda, n_src, n_tgt):
     ref_idx, ref_sq = nn_search_plain(*args)
     assert torch.equal(idx, ref_idx) and torch.equal(sq, ref_sq)
     assert (sq[-1] == 1e30).all() and (idx[-1] == 0).all()
+
+
+def check_nn(src, tgt, valid):
+    """One 1-NN wrapper call: one launch counted, bit-equal to the plain
+    version. -> (idx, sq)."""
+    before = nn_search.launches
+    idx, sq = nn_search(src, tgt, valid)
+    torch.cuda.synchronize()
+    assert nn_search.launches == before + 1
+    ref_idx, ref_sq = nn_search_plain(src, tgt, valid)
+    assert torch.equal(idx, ref_idx) and torch.equal(sq, ref_sq)
+    return idx, sq
+
+
+@pytest.mark.cuda
+def test_nn_search_duplicates_in_different_splits_go_to_the_lower_index(cuda):
+    """One source tile and 20,000 target slots: the kernel splits the targets
+    across many blocks. Each source sits exactly on a target that has copies
+    far apart in index order, so they land in different blocks' ranges."""
+    rng = np.random.default_rng(20)
+    n_tgt = 20000
+    tgt = (rng.normal(size=(1, n_tgt, 3)) * 20).astype(np.float32)
+    valid = np.ones((1, n_tgt), dtype=bool)
+    homes = np.arange(50, 50 + 64)
+    for k, home in enumerate(homes):
+        for copy in (home + 6000 + 37 * k, home + 13000 + 11 * k, n_tgt - 1 - k):
+            tgt[0, copy] = tgt[0, home]
+    src = tgt[:, homes] + np.float32(0.0)
+    idx, _ = check_nn(*(torch.from_numpy(a).to(cuda) for a in (src, tgt, valid)))
+    assert (idx[0].cpu().numpy() == homes).all()
+
+
+@pytest.mark.cuda
+def test_nn_search_coincident_points_with_negative_distance(cuda):
+    """Sources on their targets (d = +0 exactly: the same fma chains) and one
+    float32 ulp off them, where |s|^2 + |t|^2 - 2 s.t rounds below 0: the
+    order-preserving keys must keep negative winners and their own bits."""
+    rng = np.random.default_rng(21)
+    pts = (rng.normal(size=(1, 4000, 3)) * 30).astype(np.float32)
+    t = torch.from_numpy(pts).to(cuda)
+    valid = torch.ones(1, 4000, dtype=torch.bool, device=cuda)
+    idx, sq = check_nn(t, t, valid)
+    assert (sq == 0).all() and not torch.signbit(sq).any()
+    near = torch.from_numpy(np.nextafter(pts, np.float32(np.inf))).to(cuda)
+    idx, sq = check_nn(near, t, valid)
+    assert (sq < 0).sum() > 100 and torch.equal(idx[0].long(), torch.arange(4000, device=cuda))
+
+
+@pytest.mark.cuda
+def test_nn_search_a_batch_without_valid_targets_between_full_ones(cuda):
+    src, tgt, valid = nn_inputs(cuda, 22, 3, 3000, 9000, valid_share=1.0)
+    valid[1] = False
+    idx, sq = check_nn(src, tgt, valid)
+    assert (sq[1] == 1e30).all() and (idx[1] == 0).all() and (sq[0] < 1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_src,n_tgt,n_valid", [
+    (1, 1, 1), (1, 1, 0), (2, 17, 15), (2, 17, 16), (2, 17, 17), (7, 1025, 1023), (7, 1025, 1024),
+    (7, 1025, 1025), (1025, 2049, 2047), (1025, 2049, 2048), (1025, 2049, 2049),
+    (1023, 4097, 4095), (20000, 32768, 32767),
+])
+def test_nn_search_sizes_one_off_each_group_tile_and_block(cuda, n_src, n_tgt, n_valid):
+    """Valid counts one off the fminf group (16), the shared-memory tile
+    (1,024) and the count block (2,048); source counts one off a block's
+    1,024; and 20,000 sources against 32,767 valid targets, where each
+    block's range spans several tiles (the double-buffered copies) and the
+    ranges' edges fall inside tiles."""
+    src, tgt, _ = nn_inputs(cuda, n_src * 7 + n_valid, 2, n_src, n_tgt)
+    rng = np.random.default_rng(n_valid)
+    valid = np.zeros((2, n_tgt), dtype=bool)
+    for b in range(2):
+        valid[b, rng.choice(n_tgt, n_valid, replace=False)] = True
+    check_nn(src, tgt, torch.from_numpy(valid).to(cuda))
+
+
+@pytest.mark.cuda
+def test_nn_search_workspace_is_clean_across_batch_sizes(cuda):
+    """B = 8, then B = 1, then B = 8 on other data: the winner keys one call
+    leaves must be empty for the next, so a stale key would show as a wrong
+    winner."""
+    big = nn_inputs(cuda, 23, 8, 4000, 12000)
+    small = nn_inputs(cuda, 24, 1, 9000, 30000, valid_share=0.9)
+    other = nn_inputs(cuda, 25, 8, 4000, 12000)
+    for args in (big, small, other, small, big):
+        check_nn(*args)
+
+
+@pytest.mark.cuda
+def test_nn_search_on_a_second_stream(cuda):
+    from delora_tpu_torch.ops.cuda import nn_search as nn_module
+
+    args = nn_inputs(cuda, 26, 2, 3000, 8000)
+    stream = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    before = nn_search.launches
+    with torch.cuda.stream(stream):
+        idx, sq = nn_search(*args)
+    stream.synchronize()
+    assert nn_search.launches == before + 1
+    assert (cuda.index or 0, stream.cuda_stream) in nn_module._workspaces
+    ref_idx, ref_sq = nn_search_plain(*args)
+    assert torch.equal(idx, ref_idx) and torch.equal(sq, ref_sq)
+
+
+def check_matcher(src, tgt, nrm, window):
+    """Both hard searches on one input, each one launch and bit-equal to its
+    plain version: the forward matcher on the target's own occupancy, the
+    index search on an occupancy plane that marks a third of the non-empty
+    candidates empty (xyz non-zero, plane 0.5 or below)."""
+    before = window_match.launches
+    out = window_match(src, tgt, nrm, window)
+    torch.cuda.synchronize()
+    assert window_match.launches == before + 1
+    for a, b in zip(out, window_match_plain(src, tgt, nrm, window)):
+        assert torch.equal(a, b)
+    rng = np.random.default_rng(src.shape[2] + window[1])
+    plane = torch.from_numpy(rng.choice(np.float32([0.0, 0.3, 0.5, 0.51, 1.0]),
+                                        size=tuple(src.shape[:3]))).to(src.device)
+    before = window_match_indices.launches
+    k, sq = window_match_indices(src, tgt, plane, window)
+    torch.cuda.synchronize()
+    assert window_match_indices.launches == before + 1
+    ref_k, ref_sq = window_match_indices_plain(src, tgt, plane, window)
+    assert torch.equal(k, ref_k) and torch.equal(sq, ref_sq)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [(1, 1), (3, 5), (5, 9), (9, 17)])
+@pytest.mark.parametrize("height,width", [(16, 37), (64, 720), (64, 2250)])
+def test_hard_matcher_halo_at_each_width_and_window(cuda, height, width, window):
+    """W = 37 is narrower than a block's halo (64 + wu - 1 columns), so the
+    wrap repeats pixels inside one halo; 720 and 2250 leave partial tiles."""
+    args = matcher_inputs_hw(cuda, height, width, seed=height * width + window[1])
+    check_matcher(*args, window)
+
+
+def matcher_inputs_hw(cuda, height, width, seed, batch=2):
+    """matcher_inputs at any height: empty rows and blocks, duplicated
+    columns, the source a noisy copy held as the xyz slice of a 7-channel
+    image."""
+    rng = np.random.default_rng(seed)
+    tgt = (rng.normal(size=(batch, height, width, 3)) * 4.0).astype(np.float32)
+    tgt[rng.random((batch, height, width)) < 0.2] = 0.0
+    tgt[:, height // 4: height // 4 + 2] = 0.0
+    tgt[:, height // 2:, 10:30] = 0.0
+    tgt[:, :, 1::4] = tgt[:, :, 0::4][:, :, : tgt[:, :, 1::4].shape[2]]
+    nrm = rng.normal(size=(batch, height, width, 3)).astype(np.float32)
+    wide = torch.zeros(batch, height, width, 7, device=cuda)
+    wide[..., 0:3] = torch.from_numpy(
+        tgt + rng.normal(size=tgt.shape).astype(np.float32)).to(cuda)
+    return wide[..., 0:3], torch.from_numpy(tgt).to(cuda), torch.from_numpy(nrm).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [(5, 9), (9, 17)])
+def test_hard_matcher_ties_across_tile_edges_and_the_wrap(cuda, window):
+    """Exact ties between candidates in different blocks' tiles (columns
+    63 | 64, rows 7 | 8), in one thread's pair of rows (4 | 5) and across
+    two threads' pairs (3 | 4), and across the azimuth wrap (columns W - 1 |
+    0), with queries on the first and last rows and columns: the first
+    offset in dv-major, du-minor order must win, as in the plain version."""
+    height, width = 16, 200
+    src, tgt, nrm = matcher_inputs_hw(cuda, height, width, seed=30 + window[1])
+    tgt[:, :, 64] = tgt[:, :, 63]
+    tgt[:, 8] = tgt[:, 7]
+    tgt[:, 4] = tgt[:, 3]
+    tgt[:, 5] = tgt[:, 4]
+    tgt[:, :, 0] = tgt[:, :, width - 1]
+    point = torch.tensor([3.0, -2.0, 1.0], device=cuda)
+    for r in (0, 3, 4, 5, 7, 8, height - 1):
+        for c in (0, 63, 64, width - 1):
+            tgt[:, r, c] = point
+    src[:, 0, 0] = point + 0.01
+    src[:, height - 1, width - 1] = point - 0.01
+    for r, c in ((3, 63), (4, 64), (5, 63), (7, 64), (8, 63)):
+        src[:, r, c] = point
+    sq, xyz, _ = check_matcher(src, tgt, nrm, window)
+    for r, c in ((0, 0), (height - 1, width - 1), (3, 63), (4, 64), (5, 63), (7, 64), (8, 63)):
+        assert torch.equal(xyz[:, r, c], point.expand(2, 3))

@@ -27,7 +27,7 @@ import delora_tpu.ops.pallas.nn_search as jnn
 from delora_tpu.ops import correspondence as jcorr
 from delora_tpu_torch.ops import correspondence as tcorr
 from delora_tpu_torch.ops.cuda.nn_search import nn_search, nn_search_plain
-from delora_tpu_torch.ops.cuda.window_match import fma_exact
+from delora_tpu_torch.ops.exact import fma_exact
 
 
 def cloud(seed, batch, n_src, n_tgt, valid_share=0.5):

@@ -115,3 +115,70 @@ def test_placement_plain_winner_rule():
     out = placement_plain(pix, r, vals, 2, 2).reshape(4, 2)
     np.testing.assert_array_equal(
         out.numpy(), [[16.0, 9.0], [11.0, 2.0], [0.0, 0.0], [13.0, 7.0]])
+
+
+# Constructed float32 (x, y): y*y is so small that its bits fall below
+# float64's precision of x*x + y*y, and x*x + f32(y*y) lies above a float32
+# midpoint (whose lower neighbour is even) by less than half a float64 ulp.
+# The float64 sum then rounds onto the midpoint and ties to even downward,
+# one float32 ulp below the single rounding of the fma.
+DOUBLE_ROUNDING_XY = [
+    ("0x1.b1816ap+1", "0x1.52ee84p-21"),
+    ("0x1.a3764ep+1", "0x1.efeb42p-21"),
+    ("0x1.c2aee2p+1", "0x1.645c4cp-20"),
+    ("0x1.f6f8cap+1", "0x1.8fbfbcp-20"),
+]
+
+
+def test_horizontal_sum_is_the_references_single_rounded_fma():
+    """On inputs where a float64 sum rounded to float32 rounds twice, the
+    port's x*x + y*y equals jitted JAX's (XLA contracts it into one fma) bit
+    for bit, where the float64 form, the port's form before, does not. The
+    norm's sqrt absorbs that ulp (the sum moves by under half an ulp of its
+    sqrt), so the pixel coordinates equal JAX's with either form."""
+    xy = np.array([[float.fromhex(a), float.fromhex(b)] for a, b in DOUBLE_ROUNDING_XY],
+                  dtype=np.float32)
+    x, y = torch.from_numpy(xy[:, 0]), torch.from_numpy(xy[:, 1])
+    ref = np.asarray(jax.jit(lambda a, b: a * a + b * b)(jnp.asarray(xy[:, 0]),
+                                                         jnp.asarray(xy[:, 1])))
+    float64_form = (x.double() * x.double() + (y * y).double()).float().numpy()
+    assert (float64_form != ref).all()
+    np.testing.assert_array_equal(float64_form, np.nextafter(ref, np.float32(-np.inf)))
+    np.testing.assert_array_equal(tproj._horizontal_sq(x, y).numpy(), ref)
+    # Points at those (x, y) and several heights, through compute_uv.
+    z = np.linspace(-3.0, 0.2, 7, dtype=np.float32)
+    pts = np.stack(np.broadcast_arrays(xy[:, None, 0], xy[:, None, 1], z[None]), -1)
+    pts = pts.reshape(-1, 3).astype(np.float32)
+    ju, jv = jax.jit(lambda p: jproj.compute_uv(p, JSPEC))(jnp.asarray(pts))
+    tu, tv = tproj.compute_uv(torch.from_numpy(pts), TSPEC)
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_float64_double_rounding_never_moves_the_horizontal_norm():
+    """Why the repair above moves no pixel coordinate. A float64 sum
+    x² + c (c = f32(y²)) rounded to float32 rounds twice only where the sum
+    lies within half a float64 ulp of a float32 midpoint, so some term must
+    hold bits below the sum's float64 precision. If c holds them, c < 2^-29
+    x², and every float32 within an ulp of x² has |x| as its f32 square
+    root. x² = m² 2^k (odd m < 2^24) cannot hold them: with c a multiple of
+    the sum's 2^-24 relative grid, x² mod that grid would have to fall
+    within (0, 2^-53) of the grid's multiples, i.e. m² ≡ ±r mod 2^(30+j) with
+    0 < r ≤ 2^(j+1) and m² ≥ 2^(30+j), for some j; no odd m < 2^24 does.
+    The constructed inputs above confirm it: both forms give JAX's norm."""
+    m = np.arange(1, 1 << 24, 2, dtype=np.int64)
+    sq = m * m
+    for j in range(18):
+        mod = np.int64(1) << (30 + j)
+        r = sq & (mod - 1)
+        lim = np.int64(1) << (j + 1)
+        near = ((r > 0) & (r <= lim)) | (r >= mod - lim)
+        assert not (near & (sq >= mod)).any(), j
+    xy = np.array([[float.fromhex(a), float.fromhex(b)] for a, b in DOUBLE_ROUNDING_XY],
+                  dtype=np.float32)
+    x, y = torch.from_numpy(xy[:, 0]), torch.from_numpy(xy[:, 1])
+    float64_form = (x.double() * x.double() + (y * y).double()).float()
+    ref = np.asarray(jax.jit(lambda a, b: jnp.sqrt(a * a + b * b))(jnp.asarray(xy[:, 0]),
+                                                                   jnp.asarray(xy[:, 1])))
+    np.testing.assert_array_equal(float64_form.double().sqrt().float().numpy(), ref)
+    np.testing.assert_array_equal(tproj._horizontal_norm(x, y).numpy(), ref)
