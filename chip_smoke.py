@@ -26,9 +26,15 @@ exits non-zero without printing a result:
      B = 1 at 64x2250, on targets with duplicated points (ties) and empty
      rows;
    - soft window matcher, sigma 0.3, B = 8 at 64x720 with windows (5,9) and
-     (9,17): squared distances and misses bit-equal, blends within
+     (9,17), B = 1 at 64x2250 with (9,17) (halo kernel), and B = 1 at 64x720
+     with (41,89), whose halo passes a block's shared memory (global
+     kernel): squared distances and misses bit-equal, blends within
      rtol 1e-5 / atol 1e-5 (set before its first run), the measured maximum
-     printed;
+     and the count of values not bit-equal printed, with the share of
+     occupied candidates whose weight underflows to +0 (and adds nothing)
+     and an issue-slot floor: the SASS instructions an exp of the kernel's
+     cheapest loop (cuobjdump of the built library) times the occupied
+     candidates over the SMs x 128 lanes x the card's maximum SM clock;
    - index search (the reverse direction's), B = 8 at 64x720, (5,9): target
      pixels against a warped-source image with its occupancy plane;
    - exact 1-NN, B = 8, S = 46,080 warped survivors against T = 131,072
@@ -98,11 +104,15 @@ so the same file, placed beside both, compares them in one call.
     python3 chip_smoke.py --matcher-time
 
 time the 1-NN (B = 8 and B = 1 on the drive's warped survivors and on the
-near-tie cloud of phase 4f) or the hard window matcher ((5,9) and (9,17) at
-B = 8, the index search, 64x2250 at B = 1, the inputs of phases 4c and 4e)
-alone in a fresh process: each case bit-equal to its plain version, a call
-(CUDA events), the device time by kernel (torch.profiler) and the host
-microseconds of the wrapper's parts. Both flags together run both. Like
+near-tie cloud of phase 4f) or the window matchers (hard (5,9) and (9,17)
+at B = 8, the index search, hard 64x2250 at B = 1, the inputs of phases 4c
+and 4e; soft (5,9) and (9,17) at B = 8 and (9,17) at B = 1 64x2250, sigma
+0.3, as phase 4d) alone in a fresh process: each case checked against its
+plain version (bit-equal; the soft blends within phase 4d's tolerance, the
+count of values not bit-equal printed), then a call (CUDA events), the
+device time by kernel (torch.profiler) and the host microseconds of the
+wrapper's parts; for the soft matcher also the SASS instructions an exp of
+its kernel's cheapest loop. Both flags together run both. Like
 ``--placement-time`` they read only long-standing interfaces, so the same
 file times this commit and an older one.
 """
@@ -122,12 +132,13 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
+LANES_PER_SM = 128                  # Hopper: 4 schedulers x 32 lanes issue a cycle
 H, W, N = 64, 720, 131072
 TRAIN_B = 8
 SEED = 0
 PLACEMENT_KERNELS = ("select_winners", "write_and_reset")
 MATCHER_KERNELS = ("window_match_hard",)
-SOFT_KERNELS = ("window_match_soft",)
+SOFT_KERNELS = ("window_match_soft_halo", "window_match_soft_global")
 NN_KERNELS = ("nn_count_targets", "nn_pack_targets", "nn_search", "nn_finish")
 OPTIMIZER_KERNELS = ("multi_tensor_apply", "adam")
 # Tolerances of the fp32 card step against the CPU step, set before the first
@@ -139,6 +150,9 @@ FP32_RTOL = 1e-3
 # its first run: the kernel's expf and torch.exp may differ in the last bit,
 # which moves a blend by about 1e-7 of the spread of its candidates.
 SOFT_RTOL = SOFT_ATOL = 1e-5
+# The smallest 41-row window whose soft halo (32 B a cell) passes a block's
+# 232,448 B of shared memory: it takes the soft global kernel.
+LARGE_SOFT_WINDOW = (41, 89)
 RECIPE = {"soft_match_sigma": 0.3, "lambda_reverse_po2pl": 1.0, "ema_decay": 0.999,
           "use_dropout": True}
 # The brute phase's fp32 card-vs-CPU step runs on clouds cut to this many
@@ -495,18 +509,156 @@ def matcher_host_split(mod, name, args):
     return parts
 
 
+def wide_inputs(spec, scan, rng):
+    """Phase 3's first scan projected at 64x2250 (B = 1), random normals,
+    made into matcher inputs (ties, empty rows, a noisy source)."""
+    from delora_tpu_torch.ops.projection import ProjectionSpec, project_image
+
+    wide = ProjectionSpec(spec.height, 2250, spec.fov_up, spec.fov_down, spec.fov_left,
+                          spec.fov_right)
+    pts = torch.from_numpy(np.ascontiguousarray(scan[:, :3])).cuda()
+    image = project_image(pts, torch.ones(len(pts), dtype=torch.bool, device="cuda"), wide)[None]
+    normals = torch.from_numpy(rng.normal(size=(1, spec.height, 2250, 3))
+                               .astype(np.float32)).cuda()
+    return matcher_inputs(image, normals, rng)
+
+
+def soft_host_split(mod, args):
+    """Host microseconds of the parts of one soft matcher wrapper call, each
+    timed alone, for this tree's wrapper or the previous one (whose launch
+    takes no kernel choice)."""
+    src, xyz, nrm, window, sigma = args
+    B, Hh, Ww, _ = src.shape
+    dev = src.device
+    index = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    fn = mod._launchers()[1]
+    ptrs = tuple(t.data_ptr() for t in (torch.empty(B, Hh, Ww, device=dev),
+                                        torch.empty(B, Hh, Ww, 3, device=dev),
+                                        torch.empty(B, Hh, Ww, 3, device=dev)))
+    v = (*mod._view(src), *mod._view(xyz), *mod._view(nrm))
+    choice = (int(mod.soft_halo_fits(window)),) if hasattr(mod, "soft_halo_fits") else ()
+    tau = mod.inv_tau(sigma)
+    return {
+        "checks": host_us(lambda: mod._check_launch(window, src, xyz, nrm, "tgt_nrm", hard=False)),
+        "stream": host_us(lambda: torch._C._cuda_getCurrentRawStream(index)),
+        "outputs": host_us(lambda: (src.new_empty(src.shape[:3]), src.new_empty(src.shape),
+                                    src.new_empty(src.shape))),
+        "views": host_us(lambda: (*mod._view(src), *mod._view(xyz), *mod._view(nrm))),
+        "launch": host_us(lambda: fn(*v, *ptrs, B, Hh, Ww, window[0], window[1], *choice, tau,
+                                     index, stream)),
+        "call": host_us(lambda: mod.window_match_soft(*args)),
+    }
+
+
+def soft_loop_slots(names=("window_match_soft_halo", "window_match_soft")):
+    """(instructions, exps) of the soft matcher kernel's innermost loop with
+    the fewest SASS instructions an exp (MUFU.EX2), read with cuobjdump from
+    the built library: a loop is the span from a backward branch's target to
+    the branch. The first of ``names`` the library holds is the kernel (this
+    tree's halo kernel, or the previous tree's one kernel)."""
+    import shutil
+
+    from delora_tpu_torch.ops.cuda import window_match as wm_mod
+    from delora_tpu_torch.ops.cuda.build import library_path
+
+    wm_mod._launchers()                                 # builds the library if needed
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library_path("window_match"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    return loop_slots(sass, names)
+
+
+def loop_slots(sass: str, names):
+    """(instructions, exps) of the innermost loop with the fewest
+    instructions an exp in the first function of ``sass`` (cuobjdump -sass
+    text) whose name holds one of ``names``, tried in order."""
+    import re
+
+    functions = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        functions[chunk.split("\n", 1)[0].strip()] = [
+            (int(m.group(1), 16), m.group(2).strip())
+            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)]
+    name = next(n for want in names for n in functions if want in n)
+    code = functions[name]
+    loops = []
+    for addr, text in code:
+        m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for start, end in loops:
+        if any((s, e) != (start, end) and start <= s and e <= end for s, e in loops):
+            continue                                    # not innermost
+        body = [t for a, t in code if start <= a <= end]
+        exps = sum(bool(re.search(r"\bMUFU\.EX2\b", t)) for t in body)
+        if exps and (best is None or len(body) / exps < best[0] / best[1]):
+            best = (len(body), exps)
+    if best is None:
+        raise RuntimeError(f"no loop with an exp in the SASS of {name}")
+    return best
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+                          "nounits"], capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def issue_floor_ms(instructions_per_candidate: float, candidates: int) -> float:
+    """The least time the card's SMs take to issue ``instructions_per_candidate``
+    for each of ``candidates``: 128 lanes an SM a cycle at the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * LANES_PER_SM * max_sm_clock_mhz() * 1e6
+    return instructions_per_candidate * candidates / rate * 1e3
+
+
+def check_soft(label, out, ref):
+    """Raise unless the soft matcher's best_sq (and so its misses) is
+    bit-equal to its plain version's and its blends lie within SOFT_RTOL /
+    SOFT_ATOL -> (max abs diff of the blends, their values not bit-equal)."""
+    require_equal(f"{label} best_sq", out[:1], ref[:1])
+    pairs = list(zip(out[1:], ref[1:]))
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    differ = sum(int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32))
+                     .sum().item()) for a, b in pairs)
+    for a, b in pairs:
+        if not torch.allclose(a, b, rtol=SOFT_RTOL, atol=SOFT_ATOL):
+            raise RuntimeError(f"{label}: blend differs from its plain version by {err} "
+                               f"(rtol {SOFT_RTOL}, atol {SOFT_ATOL})")
+    return err, differ
+
+
+def soft_underflow(src, tgt_xyz, window, sigma: float) -> int:
+    """Occupied candidates whose weight exp(-sq / sigma^2) lies below FLT_MIN,
+    which the soft blend flushes to +0 so that they add nothing (|d|^2 is
+    summed plainly here, so a count at the boundary may differ from the
+    kernel's by a few)."""
+    wv, wu = window
+    tau = float(np.float32(1.0 / sigma ** 2))
+    tiny = float(np.finfo(np.float32).tiny)
+    Hh = src.shape[1]
+    pad = torch.nn.functional.pad(tgt_xyz, (0, 0, 0, 0, wv // 2, wv // 2))
+    count = 0
+    for dv in range(wv):
+        slab = pad[:, dv:dv + Hh]
+        for du in range(-(wu // 2), wu // 2 + 1):
+            cand = torch.roll(slab, -du, dims=2)
+            sq = ((cand - src) ** 2).sum(-1)
+            count += int(((torch.exp(-sq * tau) < tiny) & (cand != 0).any(-1)).sum().item())
+    return count
+
+
 def matcher_cases(trainer, spec, scan, rng):
-    """The hard matcher's inputs: (wrapper name, args) by label. The train
+    """The matchers' inputs: (wrapper name, args) by label. The train
     batch's target images (duplicated columns, empty rows) against noisy
     copies held as the xyz slice of [B, H, W, 7] images, windows (5,9) and
-    (9,17) at B = 8; the index search of the reverse term (the target
-    images' pixels against a warped-source image and its occupancy plane);
-    one ray-cast scan at 64x2250, B = 1."""
-    from delora_tpu_torch.ops.projection import (
-        ProjectionSpec,
-        project_image,
-        project_image_packed_batch,
-    )
+    (9,17) at B = 8, hard and soft (sigma 0.3); the index search of the
+    reverse term (the target images' pixels against a warped-source image
+    and its occupancy plane); one ray-cast scan at 64x2250, B = 1, hard at
+    (5,9) and soft at (9,17)."""
+    from delora_tpu_torch.ops.projection import project_image_packed_batch
 
     dev = trainer.device
     idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=dev)
@@ -516,19 +668,18 @@ def matcher_cases(trainer, spec, scan, rng):
     payload = torch.cat([pos, vals[..., 3:7]], -1).contiguous()    # warped xyz, normal, 1
     wimage = project_image_packed_batch(pos, valid, spec, values=payload, append_range=False)
     query = trainer.tables.image[idx][..., 0:3]
-    wide = ProjectionSpec(spec.height, 2250, spec.fov_up, spec.fov_down, spec.fov_left,
-                          spec.fov_right)
-    pts = torch.from_numpy(np.ascontiguousarray(scan[:, :3])).to(dev)
-    image = project_image(pts, torch.ones(len(pts), dtype=torch.bool, device=dev), wide)[None]
-    normals = torch.from_numpy(rng.normal(size=(1, spec.height, 2250, 3))
-                               .astype(np.float32)).to(dev)
-    wsrc, wtgt, wnrm = matcher_inputs(image, normals, rng)
+    wsrc, wtgt, wnrm = wide_inputs(spec, scan, rng)
     B = src.shape[0]
+    sigma = RECIPE["soft_match_sigma"]
     return {f"hard (5, 9) B={B}": ("window_match", (src, tgt, nrm, (5, 9))),
             f"hard (9, 17) B={B}": ("window_match", (src, tgt, nrm, (9, 17))),
             f"index (5, 9) B={B}": ("window_match_indices",
                                     (query, wimage[..., 0:3], wimage[..., 6], (5, 9))),
-            "hard (5, 9) B=1 64x2250": ("window_match", (wsrc, wtgt, wnrm, (5, 9)))}
+            "hard (5, 9) B=1 64x2250": ("window_match", (wsrc, wtgt, wnrm, (5, 9))),
+            f"soft (5, 9) B={B}": ("window_match_soft", (src, tgt, nrm, (5, 9), sigma)),
+            f"soft (9, 17) B={B}": ("window_match_soft", (src, tgt, nrm, (9, 17), sigma)),
+            "soft (9, 17) B=1 64x2250": ("window_match_soft",
+                                         (wsrc, wtgt, wnrm, (9, 17), sigma))}
 
 
 def kernel_time(nn: bool, matcher: bool) -> None:
@@ -551,11 +702,11 @@ def kernel_time(nn: bool, matcher: bool) -> None:
                       generator=torch.Generator().manual_seed(SEED))
     results = {}
 
-    def measure(label, call, calls, host):
+    def measure(label, call, calls, host, verdict="bit-equal to plain"):
         ms = cuda_ms(call, reps=5 if calls < 20 else 25, inner=3 if calls < 20 else 20)
         passes = passes_us(call, calls)
         results[label] = dict(ms=ms, device_us=sum(passes.values()), passes=passes, host_us=host)
-        say(f"{label}: bit-equal to plain | call {ms * 1e3:.2f} us, device "
+        say(f"{label}: {verdict} | call {ms * 1e3:.2f} us, device "
             f"{sum(passes.values()):.2f} us (" + ", ".join(f"{k} {v:.2f} us" for k, v in
                                                           passes.items())
             + ") | host us: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
@@ -568,11 +719,21 @@ def kernel_time(nn: bool, matcher: bool) -> None:
             measure(f"nn_search {label}", lambda args=args: nn_mod.nn_search(*args), 5,
                     nn_host_split(nn_mod, args))
     if matcher:
+        slots, exps = soft_loop_slots()
+        say(f"soft matcher SASS ({wm_mod.__file__}): its cheapest loop takes {slots} "
+            f"instructions for {exps} exps, {slots / exps:.2f} an exp")
         for label, (name, args) in matcher_cases(trainer, spec, scans[0], rng).items():
             fn = getattr(wm_mod, name)
-            require_equal(label, fn(*args), getattr(wm_mod, name + "_plain")(*args))
-            measure(label, lambda fn=fn, args=args: fn(*args), 50,
-                    matcher_host_split(wm_mod, name, args))
+            out, ref = fn(*args), getattr(wm_mod, name + "_plain")(*args)
+            if name != "window_match_soft":
+                require_equal(label, out, ref)
+                measure(label, lambda fn=fn, args=args: fn(*args), 50,
+                        matcher_host_split(wm_mod, name, args))
+                continue
+            err, differ = check_soft(label, out, ref)
+            measure(label, lambda fn=fn, args=args: fn(*args), 50, soft_host_split(wm_mod, args),
+                    f"best_sq and misses bit-equal to plain, blends max abs diff {err:.3e} "
+                    f"({differ} of {2 * out[1].numel()} values not bit-equal)")
     print(json.dumps({"kernel_time": results}), flush=True)
 
 
@@ -861,7 +1022,6 @@ def window_work(tgt_xyz, window):
 def check_matcher(trainer, spec, scan, rng, card):
     """Phase 4c: the window matcher at the train shapes and at 64x2250."""
     from delora_tpu_torch.ops.cuda.window_match import window_match, window_match_plain
-    from delora_tpu_torch.ops.projection import ProjectionSpec, project_image
 
     idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=trainer.device)
     src, tgt, nrm = matcher_inputs(trainer.tables.image[idx], trainer.tables.normal_image[idx],
@@ -891,13 +1051,7 @@ def check_matcher(trainer, spec, scan, rng, card):
         if window == (5, 9):
             timing = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                           bound_by=bound_by, device_ms=dev_ms)
-    wide = ProjectionSpec(spec.height, 2250, spec.fov_up, spec.fov_down, spec.fov_left,
-                          spec.fov_right)
-    pts = torch.from_numpy(np.ascontiguousarray(scan[:, :3])).cuda()
-    image = project_image(pts, torch.ones(len(pts), dtype=torch.bool, device="cuda"), wide)[None]
-    normals = torch.from_numpy(rng.normal(size=(1, spec.height, 2250, 3))
-                               .astype(np.float32)).cuda()
-    src, tgt, nrm = matcher_inputs(image, normals, rng)
+    src, tgt, nrm = wide_inputs(spec, scan, rng)
     out = window_match(src, tgt, nrm, (5, 9))
     err = max(err, require_equal("window_match 64x2250", out,
                                  window_match_plain(src, tgt, nrm, (5, 9))))
@@ -929,51 +1083,64 @@ def once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def check_soft_matcher(trainer, rng, card):
-    """Phase 4d: the soft matcher at the train shapes."""
+def check_soft_matcher(trainer, spec, scan, rng, card):
+    """Phase 4d: the soft matcher at the train shapes (halo kernel), at
+    64x2250 and at a window past a block's shared memory (global kernel)."""
     from delora_tpu_torch.ops.cuda.window_match import window_match_soft, window_match_soft_plain
 
     sigma = RECIPE["soft_match_sigma"]
     idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=trainer.device)
     src, tgt, nrm = matcher_inputs(trainer.tables.image[idx], trainer.tables.normal_image[idx],
                                    rng)
-    B, Hh, Ww, _ = src.shape
+    wide = wide_inputs(spec, scan, rng)
+    slots, exps = soft_loop_slots()
+    per_candidate = slots / exps
+    say(f"window_match_soft SASS: the halo kernel's cheapest loop takes {slots} instructions "
+        f"for {exps} exps, {per_candidate:.2f} an exp; SM clock at most "
+        f"{max_sm_clock_mhz():.0f} MHz")
+    cases = [((src, tgt, nrm), (5, 9), True), ((src, tgt, nrm), (9, 17), True),
+             (wide, (9, 17), False), (tuple(t[:1] for t in (src, tgt, nrm)), LARGE_SOFT_WINDOW,
+                                      False)]
     err, timing = 0.0, None
-    for window in ((5, 9), (9, 17)):
-        out = window_match_soft(src, tgt, nrm, window, sigma)
-        ref = window_match_soft_plain(src, tgt, nrm, window, sigma)
+    for (s, t, n), window, timed in cases:
+        B, Hh, Ww, _ = s.shape
+        label = f"window_match_soft sigma {sigma} B={B} {Hh}x{Ww} window {window}"
+        out = window_match_soft(s, t, n, window, sigma)
+        ref = window_match_soft_plain(s, t, n, window, sigma)
         torch.cuda.synchronize()
-        require_equal(f"window_match_soft {window} best_sq", out[:1], ref[:1])
-        blend_err = max((a - b).abs().max().item() for a, b in zip(out[1:], ref[1:]))
-        differ = sum(int((a != b).sum().item()) for a, b in zip(out[1:], ref[1:]))
-        for a, b in zip(out[1:], ref[1:]):
-            if not torch.allclose(a, b, rtol=SOFT_RTOL, atol=SOFT_ATOL):
-                raise RuntimeError(f"window_match_soft {window}: blend differs from its plain "
-                                   f"version by {blend_err} (rtol {SOFT_RTOL}, atol {SOFT_ATOL})")
+        blend_err, differ = check_soft(label, out, ref)
         err = max(err, blend_err)
         found = torch.isfinite(ref[0])
-        ms = cuda_ms(lambda: window_match_soft(src, tgt, nrm, window, sigma))
-        plain_ms = cuda_ms(lambda: window_match_soft_plain(src, tgt, nrm, window, sigma), reps=3,
-                           inner=2)
-        dev_ms = profiled_device_ms(lambda: window_match_soft(src, tgt, nrm, window, sigma),
-                                    SOFT_KERNELS)
+        call = (lambda s=s, t=t, n=n, window=window: window_match_soft(s, t, n, window, sigma))
+        ms = cuda_ms(call, reps=10 if timed else 5, inner=20 if timed else 2)
+        dev_ms = profiled_device_ms(call, SOFT_KERNELS, calls=50 if timed else 5)
         # Bytes as the hard matcher's; per occupied candidate beside the
         # distance: the exponent's product, the exp, seven products and seven
         # sums, the minimum (17 more than the hard branch's 9).
         moved = B * Hh * Ww * 64
-        visited, occupied = window_work(tgt, window)
+        visited, occupied = window_work(t, window)
         bound_ms, bound_by, bytes_ms, ops_ms = matcher_bound(moved, visited, occupied, 26)
-        say(f"window_match_soft sigma {sigma} B={B} {Hh}x{Ww} window {window}: best_sq and misses "
-            f"bit-equal to plain, blends max abs diff {blend_err:.3e} ({differ} of "
-            f"{2 * out[1].numel()} values not bit-equal; limit rtol {SOFT_RTOL} atol {SOFT_ATOL}), "
-            f"{found.float().mean().item():.4f} of pixels matched | kernel {ms * 1e3:.2f} us, "
-            "device " + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us")
-            + f", plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
-            f"({moved} B: {bytes_ms * 1e3:.2f} us; {visited} candidates visited, {occupied} "
-            f"occupied: {ops_ms * 1e3:.2f} us) on {card}")
-        if window == (5, 9):
+        floor_ms = issue_floor_ms(per_candidate, occupied)
+        underflowed = soft_underflow(s, t, window, sigma)
+        plain_ms = (cuda_ms(lambda: window_match_soft_plain(s, t, n, window, sigma), reps=3,
+                            inner=2) if timed else None)
+        say(f"{label}: best_sq and misses bit-equal to plain, blends max abs diff "
+            f"{blend_err:.3e} ({differ} of {2 * out[1].numel()} values not bit-equal; limit "
+            f"rtol {SOFT_RTOL} atol {SOFT_ATOL}), {found.float().mean().item():.4f} of pixels "
+            f"matched, {underflowed} of {occupied} occupied candidates weigh +0 | kernel "
+            f"{ms * 1e3:.2f} us, device "
+            + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us")
+            + ("" if plain_ms is None else f", plain {plain_ms * 1e3:.2f} us")
+            + f", bound {bound_ms * 1e3:.2f} us by {bound_by} ({moved} B: {bytes_ms * 1e3:.2f} "
+            f"us; {visited} candidates visited, {occupied} occupied: {ops_ms * 1e3:.2f} us), "
+            f"issue-slot floor {floor_ms * 1e3:.2f} us ({per_candidate:.2f} instructions x "
+            f"{occupied} occupied candidates)"
+            + ("" if dev_ms is None else f", {floor_ms / dev_ms:.3f} of it reached")
+            + f" on {card}")
+        if timed and window == (5, 9):
             timing = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                          bound_by=bound_by, device_ms=dev_ms)
+                          bound_by=bound_by, device_ms=dev_ms, floor_ms=floor_ms,
+                          floor_instructions_per_candidate=per_candidate)
     return timing, err
 
 
@@ -1443,7 +1610,7 @@ def main() -> None:
     packed, err_packed = check_packed_placement(trainer, spec, rng, card)
     err_exact = max(err_exact, check_placement_after_larger_call(trainer, spec, rng, card))
     matcher, err_matcher = check_matcher(trainer, spec, scans[0], rng, card)
-    soft, err_soft = check_soft_matcher(trainer, rng, card)
+    soft, err_soft = check_soft_matcher(trainer, spec, scans[0], rng, card)
     index, err_index = check_index_matcher(trainer, spec, card)
     nn, err_nn = check_nn_search(trainer, scans, normals, spec, rng, card)
 
@@ -1491,7 +1658,8 @@ def main() -> None:
                 "launches": launches, "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t.get("bound_by", "bytes"),
-                "library_ms": t["library_ms"], "device_ms": t["device_ms"]}
+                "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+                **{k: t[k] for k in ("floor_ms", "floor_instructions_per_candidate") if k in t}}
 
     matcher_src = "delora_tpu_torch/csrc/window_match.cu"
     print(card, flush=True)

@@ -54,10 +54,11 @@ import torch.nn.functional as F
 from delora_tpu_torch.ops.cuda.build import load_library
 from delora_tpu_torch.ops.exact import squared_distance
 
-# The hard kernel's block: _TILE_H rows of _TILE_W query pixels, two rows a
+# The halo kernels' block: _TILE_H rows of _TILE_W query pixels, two rows a
 # thread, whose windows' candidates it stages in shared memory (kTileH,
-# kTileW in csrc/window_match.cu); a block may take at most
-# _SMEM_LIMIT bytes on the H100, which bounds the window the kernel takes.
+# kTileW in csrc/window_match.cu); a block may take at most _SMEM_LIMIT
+# bytes on the H100, which bounds the window the hard kernel takes and the
+# window the soft halo kernel takes (beyond it, the soft global kernel).
 _TILE_H, _TILE_W = 8, 64
 _SMEM_LIMIT = 232448
 _MAX_HEIGHT = _TILE_H * 65535       # the grid's rows of tiles
@@ -100,6 +101,18 @@ def smem_bytes(window) -> int:
     candidate halo, 16 B a cell."""
     wv, wu = window
     return (_TILE_H + wv - 1) * (_TILE_W + wu - 1) * 16
+
+
+def soft_smem_bytes(window) -> int:
+    """Shared memory of one block of the soft halo kernel for ``window``: its
+    candidate halo, 32 B a cell (xyz and normal)."""
+    return 2 * smem_bytes(window)
+
+
+def soft_halo_fits(window) -> bool:
+    """Whether the soft blend takes the halo kernel (else the global one,
+    which takes any window)."""
+    return soft_smem_bytes(window) <= _SMEM_LIMIT
 
 
 def _fits(t: torch.Tensor, shape, dev) -> bool:
@@ -298,7 +311,8 @@ def window_match_soft(src, tgt_xyz, tgt_nrm, window, sigma: float):
     """Soft window match ``-> (best_sq, blended xyz, blended normal)`` with
     weights ``exp(-sq / sigma^2)``.
 
-    On CUDA tensors it launches the kernel (and counts the launch in
+    On CUDA tensors it launches the halo kernel, or the global one where
+    :func:`soft_halo_fits` is false (and counts the launch in
     ``window_match_soft.launches``); on CPU tensors it runs
     :func:`window_match_soft_plain`.
     """
@@ -314,8 +328,8 @@ def window_match_soft(src, tgt_xyz, tgt_nrm, window, sigma: float):
     index = src.device.index
     err = _launchers()[1](
         *_view(src), *_view(tgt_xyz), *_view(tgt_nrm), best_sq.data_ptr(), best_xyz.data_ptr(),
-        best_nrm.data_ptr(), shape[0], shape[1], shape[2], window[0], window[1], inv_tau(sigma),
-        index, torch._C._cuda_getCurrentRawStream(index))
+        best_nrm.data_ptr(), shape[0], shape[1], shape[2], window[0], window[1],
+        soft_halo_fits(window), inv_tau(sigma), index, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"window_match_soft kernel launch failed with CUDA error {err}")
     window_match_soft.launches += 1
@@ -347,17 +361,25 @@ def _launch_hard(src, txyz, tnrm, occ, out_sq, out_xyz, out_nrm, out_k, window):
         raise RuntimeError(f"window_match kernel launch failed with CUDA error {err}")
 
 
+_VIEW = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+# window_match_launch: the src, txyz, tnrm and occ views; out_sq, out_xyz,
+# out_nrm, out_k; batch, height, width, wv, wu, device; the stream.
+_HARD_ARGTYPES = _VIEW * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# window_match_soft_launch: the src, txyz and tnrm views; out_sq, out_xyz,
+# out_nrm; batch, height, width, wv, wu, halo; inv_tau; device; the stream.
+_SOFT_ARGTYPES = (_VIEW * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def _launchers():
     """(``window_match_launch``, ``window_match_soft_launch``) of the built
     library, their argument types set once."""
     lib = load_library("window_match")
-    view = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
     hard = lib.window_match_launch
-    hard.argtypes = view * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    hard.argtypes = _HARD_ARGTYPES
     hard.restype = ctypes.c_int
     soft = lib.window_match_soft_launch
-    soft.argtypes = (view * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    soft.argtypes = _SOFT_ARGTYPES
     soft.restype = ctypes.c_int
     return hard, soft

@@ -24,6 +24,7 @@ from delora_tpu_torch.ops.cuda import placement as placement_module
 from delora_tpu_torch.ops.cuda.placement import key_bits, placement, placement_plain
 from delora_tpu_torch.ops.cuda.nn_search import nn_search, nn_search_plain
 from delora_tpu_torch.ops.cuda.window_match import (
+    soft_halo_fits,
     window_match,
     window_match_indices,
     window_match_indices_plain,
@@ -431,7 +432,7 @@ def test_hard_matcher_halo_at_each_width_and_window(cuda, height, width, window)
     check_matcher(*args, window)
 
 
-def matcher_inputs_hw(cuda, height, width, seed, batch=2):
+def matcher_inputs_hw(cuda, height, width, seed, batch=2, noise=1.0):
     """matcher_inputs at any height: empty rows and blocks, duplicated
     columns, the source a noisy copy held as the xyz slice of a 7-channel
     image."""
@@ -444,7 +445,7 @@ def matcher_inputs_hw(cuda, height, width, seed, batch=2):
     nrm = rng.normal(size=(batch, height, width, 3)).astype(np.float32)
     wide = torch.zeros(batch, height, width, 7, device=cuda)
     wide[..., 0:3] = torch.from_numpy(
-        tgt + rng.normal(size=tgt.shape).astype(np.float32)).to(cuda)
+        tgt + noise * rng.normal(size=tgt.shape).astype(np.float32)).to(cuda)
     return wide[..., 0:3], torch.from_numpy(tgt).to(cuda), torch.from_numpy(nrm).to(cuda)
 
 
@@ -474,3 +475,128 @@ def test_hard_matcher_ties_across_tile_edges_and_the_wrap(cuda, window):
     sq, xyz, _ = check_matcher(src, tgt, nrm, window)
     for r, c in ((0, 0), (height - 1, width - 1), (3, 63), (4, 64), (5, 63), (7, 64), (8, 63)):
         assert torch.equal(xyz[:, r, c], point.expand(2, 3))
+
+
+def check_soft(src, tgt, nrm, window, sigma=0.3):
+    """One soft matcher call: one launch counted, best_sq (and so the misses)
+    bit-equal to the plain version's, the blends within rtol / atol 1e-5,
+    no NaN. -> the kernel's (best_sq, xyz, nrm)."""
+    before = window_match_soft.launches
+    out = window_match_soft(src, tgt, nrm, window, sigma)
+    torch.cuda.synchronize()
+    assert window_match_soft.launches == before + 1
+    ref = window_match_soft_plain(src, tgt, nrm, window, sigma)
+    assert torch.equal(out[0], ref[0])
+    for a, b in zip(out[1:], ref[1:]):
+        assert not torch.isnan(a).any()
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [(1, 1), (3, 5), (5, 9), (9, 17)])
+@pytest.mark.parametrize("height,width", [(16, 37), (16, 64), (64, 720), (64, 2250)])
+def test_soft_halo_kernel_at_each_width_and_window(cuda, height, width, window):
+    """The soft halo kernel: W = 37 is narrower than a block's halo, 64 one
+    tile, 720 and 2250 leave partial tiles; empty rows, an empty block,
+    duplicated columns."""
+    assert soft_halo_fits(window)
+    args = matcher_inputs_hw(cuda, height, width, seed=height * width + window[1] + 1,
+                             noise=0.3)
+    sq, _, _ = check_soft(*args, window)
+    assert torch.isfinite(sq).float().mean() > 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 200])
+def test_soft_global_kernel_past_shared_memory(cuda, width):
+    """(41, 89): its soft halo passes a block's shared memory, so the
+    wrapper takes the global kernel, one launch, same results."""
+    assert not soft_halo_fits((41, 89))
+    args = matcher_inputs_hw(cuda, 16, width, seed=width + 5, noise=0.3)
+    check_soft(*args, (41, 89))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [(5, 9), (9, 17), (41, 89)])
+def test_soft_empty_block_and_windows_that_underflow(cuda, window):
+    """Queries whose windows hold only unoccupied candidates, and queries 5 m
+    from every candidate of their window (each weight exp(-25 / 0.09)
+    underflows): both miss (best_sq +inf, blends exactly 0), with no NaN.
+    At (41, 89) (the global kernel) every candidate is one point and only
+    the first row's queries lie on it."""
+    height, width = 32, 200
+    src, tgt, nrm = matcher_inputs_hw(cuda, height, width, seed=40 + window[1], noise=0.3)
+    point = torch.tensor([3.0, -2.0, 1.0], device=cuda)
+    far = point + torch.tensor([5.0, 0.0, 0.0], device=cuda)
+    if window == (41, 89):
+        tgt[:] = point
+        tgt[:, 8:12] = 0.0
+        src[:] = far
+        src[:, 0] = point
+        misses = [(slice(None), slice(1, height))]
+    else:
+        tgt[:, 8:20] = 0.0
+        src[:, 12:16] = 1.0
+        tgt[:, 24:32, 80:160] = point
+        src[:, 28:32, 100:140] = far
+        misses = [(slice(None), slice(12, 16)), (slice(None), slice(28, 32), slice(100, 140))]
+    sq, xyz, nrm_out = check_soft(src, tgt, nrm, window)
+    for block in misses:
+        assert torch.isinf(sq[block]).all()
+        assert (xyz[block] == 0).all() and (nrm_out[block] == 0).all()
+    assert torch.isfinite(sq).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [(5, 9), (9, 17)])
+def test_soft_matcher_ties_across_tile_edges_and_the_wrap(cuda, window):
+    """Equal candidates in different blocks' tiles (columns 63 | 64, rows
+    7 | 8), in one thread's pair of rows and across two threads' pairs, and
+    across the azimuth wrap (columns W - 1 | 0), with queries on the first
+    and last rows and columns: each pixel's sums take its offsets in the
+    plain version's order."""
+    height, width = 16, 200
+    src, tgt, nrm = matcher_inputs_hw(cuda, height, width, seed=50 + window[1], noise=0.3)
+    tgt[:, :, 64] = tgt[:, :, 63]
+    tgt[:, 8] = tgt[:, 7]
+    tgt[:, 4] = tgt[:, 3]
+    tgt[:, 5] = tgt[:, 4]
+    tgt[:, :, 0] = tgt[:, :, width - 1]
+    point = torch.tensor([3.0, -2.0, 1.0], device=cuda)
+    for r in (0, 3, 4, 5, 7, 8, height - 1):
+        for c in (0, 63, 64, width - 1):
+            tgt[:, r, c] = point
+    src[:, 0, 0] = point + 0.01
+    src[:, height - 1, width - 1] = point - 0.01
+    for r, c in ((3, 63), (4, 64), (5, 63), (7, 64), (8, 63)):
+        src[:, r, c] = point
+    sq, _, _ = check_soft(src, tgt, nrm, window)
+    for r, c in ((3, 63), (4, 64), (5, 63), (7, 64), (8, 63)):
+        assert (sq[:, r, c] == 0).all()
+
+
+@pytest.mark.cuda
+def test_soft_matcher_batch_sizes_and_ragged_tiles(cuda):
+    """B = 8, then B = 1, then B = 8 again, on 13 rows (a partial tile of
+    rows) viewed out of 16: every call right."""
+    src, tgt, nrm = (t[:, :13] for t in matcher_inputs_hw(cuda, 16, 720, seed=60, batch=8,
+                                                           noise=0.3))
+    for b in (8, 1, 8):
+        check_soft(src[:b], tgt[:b], nrm[:b], (5, 9))
+
+
+@pytest.mark.cuda
+def test_soft_matcher_on_a_second_stream(cuda):
+    """A call on a side stream launches there and is right once that stream
+    is synchronized."""
+    args = matcher_inputs_hw(cuda, 16, 720, seed=70, noise=0.3)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = window_match_soft(*args, (9, 17), 0.3)
+    stream.synchronize()
+    ref = window_match_soft_plain(*args, (9, 17), 0.3)
+    assert torch.equal(out[0], ref[0])
+    for a, b in zip(out[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
