@@ -14,7 +14,8 @@ exits non-zero without printing a result:
 4. kernels: each kernel against its plain PyTorch version on the card,
    bit-equal:
    - placement, exact rule, at the serving shapes (KITTI 64x720, N = 131072,
-     B = 1 and 2);
+     B = 1 and 2) and at the preprocessing shape (64x2250, N = 147,456, the
+     KITTI staging capacity, on a drive scan), also against the CPU;
    - placement, packed rule, at the train shape (B = 8, N = 46,080 survivors,
      7 payload channels, no range channel) on the main path's warped
      survivors and on a cloud with duplicates and 16-bit range near-ties; its
@@ -68,10 +69,34 @@ exits non-zero without printing a result:
    the padded clouds (131,072 points) in tables on the card; every step
    finite with one 1-NN launch; pairs/s and the device split; one fp32 step
    against the CPU on a reduced cloud (max_points 16,384, B = 2: the CPU's
-   exact search over full clouds would take minutes).
+   exact search over full clouds would take minutes);
+9. the offline pipeline from disk, through ``python -m delora_tpu_torch.cli``
+   on the card, on the 24 drive scans written as a KITTI layout (velodyne
+   .bin files and camera-frame poses) in a temporary directory:
+   ``preprocess`` at 64x2250 (one exact placement a scan; the host-clock
+   read, device and write time a scan, the projection's and the normals'
+   CUDA-event time), two scans also through the CPU's plain path (survivors
+   that differ, limit 0.05% of points; normals of common survivors within
+   1e-4 on >= 99.9%, the worst printed); ``train`` at full width, B = 8,
+   3 epochs, unsupervised, evaluated every epoch, ``epoch_NNNNN`` kept every
+   2 (checkpoints latest, epoch_00000, epoch_00002 and best; every epoch's
+   metrics finite; one packed placement and one matcher launch a step; the
+   set-up seconds and pairs/s); a resume from ``latest`` that starts at
+   epoch 3; one epoch streamed from the host (``hbm_cache_scans`` 8); ``test``
+   of ``best`` (24 finite, rigid poses; finite RPE; no kernel launch, the
+   cached path projects on the host); and the tester's loss evaluation on
+   the raw feed (two exact placements, one packed and one matcher launch a
+   batch).
 
-The last lines are the card (nvidia-smi), the kernel table as one JSON object,
-and ``{"ok": true, "device": {...}}``.
+Each path of phases 5-9 is driven with every kernel's launch count set to 0
+just before it and read just after; the placement wrapper counts its exact
+and its packed rule apart. A path fails unless each of its kernels launched
+as often as the path should launch it and every other kernel not at all.
+
+The last lines are the card (nvidia-smi), the kernel table as one JSON object
+(every row with its launches by path, as read in those runs, and the exact
+placement's row with its preprocessing shape), and ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py --train-rate EPOCHS
 
@@ -661,13 +686,12 @@ def matcher_cases(trainer, spec, scan, rng):
     from delora_tpu_torch.ops.projection import project_image_packed_batch
 
     dev = trainer.device
-    idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=dev)
-    src, tgt, nrm = matcher_inputs(trainer.tables.image[idx], trainer.tables.normal_image[idx],
-                                   rng)
+    tables, idx = first_targets(trainer)
+    src, tgt, nrm = matcher_inputs(tables.image[idx], tables.normal_image[idx], rng)
     pos, valid, vals = warped_survivors(trainer)
     payload = torch.cat([pos, vals[..., 3:7]], -1).contiguous()    # warped xyz, normal, 1
     wimage = project_image_packed_batch(pos, valid, spec, values=payload, append_range=False)
-    query = trainer.tables.image[idx][..., 0:3]
+    query = tables.image[idx][..., 0:3]
     wsrc, wtgt, wnrm = wide_inputs(spec, scan, rng)
     B = src.shape[0]
     sigma = RECIPE["soft_match_sigma"]
@@ -869,6 +893,62 @@ def placement_device_times(label, call, yard, lib_ms, card):
     return dev_ms
 
 
+def preprocess_input(scan, spec, capacity):
+    """One raw scan padded to the preprocessing capacity, on the card, as
+    ``Preprocessor.preprocess_scan`` stages it -> (points [1, N, 3], valid)."""
+    n = min(len(scan), capacity)
+    pts = torch.zeros(1, capacity, 3)
+    pts[0, :n] = torch.from_numpy(np.ascontiguousarray(scan[:n, :3]))
+    valid = torch.zeros(1, capacity, dtype=torch.bool)
+    valid[0, :n] = True
+    return pts.cuda(), valid.cuda()
+
+
+def check_exact_placement_preprocess(scan, card):
+    """Phase 4a, the preprocessing shape: the exact rule at 64x2250 with
+    N = 147,456 (the KITTI staging capacity) on a drive scan, bit-equal to
+    its plain version on the card and on the CPU -> (timing, max abs error)."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.data.preprocess import staging_capacity
+    from delora_tpu_torch.ops.cuda.placement import placement, placement_plain
+    from delora_tpu_torch.ops.projection import ProjectionSpec, _pixel_coords
+
+    config = default_config(mode="preprocessing")
+    spec = ProjectionSpec.from_config(config, "kitti", preprocessing=True)
+    capacity = staging_capacity(config, "kitti", spec)
+    pts, valid = preprocess_input(scan, spec, capacity)
+    r, _, _, in_fov, pix = _pixel_coords(pts, valid, spec)
+    args = (pix.contiguous(), r.contiguous(), pts.contiguous(), spec.height, spec.width)
+    out = placement(*args)
+    ref = placement_plain(*args)
+    torch.cuda.synchronize()
+    err = require_equal(f"placement exact {spec.height}x{spec.width} N={capacity}", [out], [ref])
+    cpu = placement_plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    if not torch.equal(cpu, out.cpu()):
+        raise RuntimeError("placement at the preprocessing shape differs from the CPU plain "
+                           "version")
+    hw = spec.height * spec.width
+    occ = ref[..., 3] > 0
+    ms = cuda_ms(lambda: placement(*args))
+    plain_ms = cuda_ms(lambda: placement_plain(*args), reps=10, inner=5)
+    yard = placement_yardstick(args[0], args[1], hw, packed=False)
+    lib_ms = cuda_ms(yard)
+    dev_ms = placement_device_times(f"placement exact preprocessing {spec.height}x{spec.width}",
+                                    lambda: placement(*args), yard, lib_ms, card)
+    moved = capacity * 8 + int(occ.sum().item()) * 3 * 4 + hw * 4 * 4
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    say(f"placement exact B=1 N={capacity} {spec.height}x{spec.width} (preprocessing, "
+        f"{int(valid.sum())} valid): bit-equal to plain on the card and the CPU, occupancy "
+        f"{occ.float().mean().item():.4f}, {in_fov.sum().item()} in FoV | kernel "
+        f"{ms * 1e3:.2f} us, device "
+        + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us")
+        + f", plain {plain_ms * 1e3:.2f} us, scatter_reduce amin {lib_ms * 1e3:.2f} us, bound "
+        f"{bound_ms * 1e3:.2f} us ({moved} B) on {card}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                device_ms=dev_ms, bound_by="bytes", max_abs_err=err,
+                shape=f"B=1 N={capacity} {spec.height}x{spec.width}"), err
+
+
 def warped_survivors(trainer):
     """The main path's input to the packed placement: a train batch's
     compacted source survivors, warped by a small rigid motion."""
@@ -1023,9 +1103,8 @@ def check_matcher(trainer, spec, scan, rng, card):
     """Phase 4c: the window matcher at the train shapes and at 64x2250."""
     from delora_tpu_torch.ops.cuda.window_match import window_match, window_match_plain
 
-    idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=trainer.device)
-    src, tgt, nrm = matcher_inputs(trainer.tables.image[idx], trainer.tables.normal_image[idx],
-                                   rng)
+    tables, idx = first_targets(trainer)
+    src, tgt, nrm = matcher_inputs(tables.image[idx], tables.normal_image[idx], rng)
     B, Hh, Ww, _ = src.shape
     err, timing = 0.0, None
     for window in ((5, 9), (9, 17)):
@@ -1089,9 +1168,8 @@ def check_soft_matcher(trainer, spec, scan, rng, card):
     from delora_tpu_torch.ops.cuda.window_match import window_match_soft, window_match_soft_plain
 
     sigma = RECIPE["soft_match_sigma"]
-    idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=trainer.device)
-    src, tgt, nrm = matcher_inputs(trainer.tables.image[idx], trainer.tables.normal_image[idx],
-                                   rng)
+    tables, idx = first_targets(trainer)
+    src, tgt, nrm = matcher_inputs(tables.image[idx], tables.normal_image[idx], rng)
     wide = wide_inputs(spec, scan, rng)
     slots, exps = soft_loop_slots()
     per_candidate = slots / exps
@@ -1157,8 +1235,8 @@ def check_index_matcher(trainer, spec, card):
     pos, valid, vals = warped_survivors(trainer)
     payload = torch.cat([pos, vals[..., 3:7]], -1).contiguous()    # warped xyz, normal, 1
     wimage = project_image_packed_batch(pos, valid, spec, values=payload, append_range=False)
-    idx = torch.as_tensor(trainer.pair_target[:TRAIN_B], device=trainer.device)
-    query = trainer.tables.image[idx][..., 0:3]
+    tables, idx = first_targets(trainer)
+    query = tables.image[idx][..., 0:3]
     args = (query, wimage[..., 0:3], wimage[..., 6], (5, 9))
     out = window_match_indices(*args)
     ref = window_match_indices_plain(*args)
@@ -1221,7 +1299,7 @@ def nn_cases(trainer, scans, normals, spec, rng):
 
     dev = trainer.device
     pos, _, _ = warped_survivors(trainer)
-    padded = [padded_scan(scans[i], normals[i], N) for i in trainer.pair_target[:TRAIN_B]]
+    padded = [padded_scan(scans[i], normals[i], N) for i in first_targets(trainer)[1].tolist()]
     pts = torch.from_numpy(np.stack([p for p, _, _ in padded])).to(dev)
     mask = torch.from_numpy(np.stack([m for _, _, m in padded])).to(dev)
     survivor = project_scan_batch(pts, mask, spec).survivor
@@ -1273,10 +1351,9 @@ def check_nn_search(trainer, scans, normals, spec, rng, card):
 
 
 def run_serving(config, scans, spec, card):
-    """Phase 5, as in the serving slice. -> placement launches."""
+    """Phase 5, as in the serving slice."""
     from torch.profiler import ProfilerActivity, profile
 
-    from delora_tpu_torch.ops.cuda.placement import placement
     from delora_tpu_torch.ops.projection import project_image
     from delora_tpu_torch.serving.stream import StreamingOdometry
     from delora_tpu_torch.training.step import forward_pose
@@ -1285,7 +1362,7 @@ def run_serving(config, scans, spec, card):
     say(f"serving: {len(scans)} ray-cast scans, {min(map(len, scans))}-"
         f"{max(map(len, scans))} points each")
     engine = StreamingOdometry(config, device=dev)
-    placement.launches = 0
+    reset_launches()
     latencies, transforms, steps = [], [], {}
     for scan in scans:
         out = engine.push_scan(scan)
@@ -1295,10 +1372,8 @@ def run_serving(config, scans, spec, card):
             latencies.append(out[2])
             for key, dt in engine.step_times.items():
                 steps.setdefault(key, []).append(dt)
-    launches = placement.launches
-    if launches != len(scans):
-        raise RuntimeError(f"placement kernel launched {launches} times for {len(scans)} scans")
-    say(f"serving bf16: {len(latencies)} pairs, every T finite and rigid, placement launches "
+    launches = path_launches("serving", {"placement": len(scans)})
+    say(f"serving bf16: {len(latencies)} pairs, every T finite and rigid, launches "
         f"{launches} for {len(scans)} scans | per-scan latency p50 "
         f"{statistics.median(latencies) * 1e3:.2f} ms, first {latencies[0] * 1e3:.2f} ms, "
         f"max {max(latencies) * 1e3:.2f} ms on {card}")
@@ -1359,13 +1434,61 @@ def run_serving(config, scans, spec, card):
         f"on the same images {model_diff:.3e} (limit 1e-4); card vs CPU projection: "
         f"{pix_diff} of {spec.height * spec.width} pixels change hands (limit 0.1%), max abs "
         f"diff elsewhere {ulp_diff:.3e}")
-    return launches
+
+
+def first_targets(trainer):
+    """The drive's device tables and the target rows of its first B pairs."""
+    feed = trainer.feeds["kitti"]
+    return feed.tables, torch.as_tensor(feed.pair_target[:TRAIN_B], device=trainer.device)
 
 
 def first_batch(trainer):
     """The batch of the first B pairs, gathered from the trainer's tables."""
-    return trainer.batch(torch.as_tensor(trainer.pair_target[:TRAIN_B], device=trainer.device),
-                         torch.as_tensor(trainer.pair_source[:TRAIN_B], device=trainer.device))
+    feed = trainer.feeds["kitti"]
+    return trainer.batch(torch.as_tensor(feed.pair_target[:TRAIN_B], device=trainer.device),
+                         torch.as_tensor(feed.pair_source[:TRAIN_B], device=trainer.device))
+
+
+def counters():
+    """Each kernel row's launch count, by row name -> (wrapper, attribute).
+    The placement wrapper counts its two winner rules apart."""
+    from delora_tpu_torch.ops.cuda.nn_search import nn_search
+    from delora_tpu_torch.ops.cuda.placement import placement
+    from delora_tpu_torch.ops.cuda.window_match import (
+        window_match,
+        window_match_indices,
+        window_match_soft,
+    )
+
+    return {"placement": (placement, "launches_exact"),
+            "placement_packed": (placement, "launches_packed"),
+            "window_match": (window_match, "launches"),
+            "window_match_soft": (window_match_soft, "launches"),
+            "window_match_index": (window_match_indices, "launches"),
+            "nn_search": (nn_search, "launches")}
+
+
+# Path -> each kernel's launches in that path's run (see path_launches).
+PATH_LAUNCHES = {}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for wrapper, attr in counters().values():
+        setattr(wrapper, attr, 0)
+
+
+def path_launches(path: str, expected) -> dict:
+    """The launches since :func:`reset_launches`, read just after ``path``
+    was driven and kept as its own: fails unless each kernel named in
+    ``expected`` launched that often and every other kernel not at all.
+    -> the kernels that launched, with their counts."""
+    counts = {name: getattr(wrapper, attr) for name, (wrapper, attr) in counters().items()}
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise RuntimeError(f"{path}: kernel launches {counts}, expected {want}")
+    PATH_LAUNCHES[path] = counts
+    return {name: n for name, n in counts.items() if n}
 
 
 def check_steps(trainer, epoch, positive=()):
@@ -1383,11 +1506,11 @@ def check_steps(trainer, epoch, positive=()):
 
 
 def run_training(trainer, card, label, epochs, per_step, positive=()):
-    """Train ``epochs`` epochs (2 supervised, then unsupervised) and check
-    the kernel launches: ``per_step`` maps a name to (wrapper, launches a
-    step). -> (launches by name, steady-state pairs/s)."""
-    for wrapper, _ in per_step.values():
-        wrapper.launches = 0
+    """Train ``epochs`` epochs (2 supervised, then unsupervised) as the path
+    ``label`` and check its kernel launches: ``per_step`` maps a kernel row
+    to its launches a step, every other kernel launches none. -> steady-state
+    pairs/s."""
+    reset_launches()
     steps, history = 0, []
     # The warmup's own switch (epoch loss < 1e-2) would take hundreds of steps
     # at lr 1e-5 from random weights, so the run switches after 2 epochs.
@@ -1404,11 +1527,7 @@ def run_training(trainer, card, label, epochs, per_step, positive=()):
             f"{metrics['loss_pl2pl']:.6f}, rev {metrics['loss_po2pl_rev']:.6f}, pairs "
             f"{metrics['num_po2pl_pairs']:.1f}, visible {metrics['visible_pixels']:.1f}, "
             f"grad_norm {metrics['grad_norm']:.4e}, {metrics['epoch_seconds'] * 1e3:.1f} ms")
-    launches = {name: wrapper.launches for name, (wrapper, _) in per_step.items()}
-    expected = {name: k * steps for name, (_, k) in per_step.items()}
-    if launches != expected:
-        raise RuntimeError(f"{label}: kernel launches {launches} for {steps} steps, expected "
-                           f"{expected}")
+    launches = path_launches(label, {name: k * steps for name, k in per_step.items()})
     steady = history[3:]
     pairs_per_s = (sum(h["steps"] for h in steady) * trainer.batch_size
                    / sum(h["epoch_seconds"] for h in steady))
@@ -1417,7 +1536,7 @@ def run_training(trainer, card, label, epochs, per_step, positive=()):
         + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" for {steps} steps | steady "
         f"state (epochs 3-{epochs - 1}, host clock, one readback an epoch) {pairs_per_s:.1f} "
         f"pairs/s on {card}")
-    return launches, pairs_per_s
+    return pairs_per_s
 
 
 def model_images(trainer, batch):
@@ -1426,8 +1545,9 @@ def model_images(trainer, batch):
 
     if trainer.feed == "full":
         return batch.image_1, batch.image_2
-    return (project_scan_batch(batch.points_1, batch.valid_1, trainer.spec).image,
-            project_compact_exact_batch(batch.points_2, batch.valid_2, trainer.spec).image)
+    spec = trainer.feeds["kitti"].spec
+    return (project_scan_batch(batch.points_1, batch.valid_1, spec).image,
+            project_compact_exact_batch(batch.points_2, batch.valid_2, spec).image)
 
 
 def step_split(trainer, card, label):
@@ -1560,18 +1680,256 @@ def check_ema(trainer, card):
         f"(translation {np.round(T[:3, 3], 4).tolist()}) on {card}")
 
 
+def write_kitti_layout(root: str, scans) -> None:
+    """The drive's scans as a KITTI raw layout under ``root``:
+    ``sequences/00/velodyne/NNNNNN.bin`` and ``poses/00.txt``, the sensor's
+    poses (1 m and 0.01 rad of yaw a scan, as ``drive`` moves it) in the KITTI
+    camera frame."""
+    import os
+
+    from delora_tpu_torch.utils.poses import TRANSFORM_LIDAR_TO_WORLD as P
+
+    velodyne = os.path.join(root, "sequences", "00", "velodyne")
+    os.makedirs(velodyne)
+    os.makedirs(os.path.join(root, "poses"))
+    rows = []
+    for k, scan in enumerate(scans):
+        np.ascontiguousarray(scan, np.float32).tofile(os.path.join(velodyne, f"{k:06d}.bin"))
+        c, s_ = math.cos(0.01 * k), math.sin(0.01 * k)
+        pose = np.array([[c, -s_, 0.0, 1.0 * k], [s_, c, 0.0, 0.05 * k], [0.0, 0.0, 1.0, 0.0],
+                         [0.0, 0.0, 0.0, 1.0]])
+        rows.append((P @ pose @ P.T)[:3].ravel())
+    np.savetxt(os.path.join(root, "poses", "00.txt"), np.asarray(rows))
+
+
+def metrics_records(trainer):
+    """The records of a disk trainer's metrics.jsonl."""
+    import os
+
+    with open(os.path.join(trainer.logger.run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def epoch_records(trainer):
+    return [r for r in metrics_records(trainer) if "loss" in r]
+
+
+def check_preprocessing_against_cpu(root, scans, card):
+    """Two scans preprocessed on the CPU through the plain path against the
+    card's files: survivors that differ (limit 0.05% of points) and the
+    normals of common survivors (limit 1e-4 on >= 99.9% of them)."""
+    import os
+
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.data.preprocess import Preprocessor, staging_capacity
+    from delora_tpu_torch.ops.normals import NormalsSpec
+    from delora_tpu_torch.ops.projection import ProjectionSpec
+
+    config = default_config(mode="preprocessing")
+    pspec = ProjectionSpec.from_config(config, "kitti", preprocessing=True)
+    nspec = NormalsSpec.from_config(config, "kitti")
+    capacity = staging_capacity(config, "kitti", pspec)
+    cpu = Preprocessor(config, device="cpu")
+    points = moved = common = within = 0
+    worst = 0.0
+    for k in (0, len(scans) - 1):
+        t0 = time.perf_counter()
+        ref_pts, ref_nrm, _ = cpu.preprocess_scan(scans[k][:, :3], pspec, nspec, capacity)
+        cpu_s = time.perf_counter() - t0
+        base = os.path.join(root, "preprocessed", "00")
+        pts = np.load(os.path.join(base, "scans", f"{k:06d}.npy"))
+        nrm = np.load(os.path.join(base, "normals", f"{k:06d}.npy"))
+        # Survivors keep the raw scan's order: match rows by their bytes.
+        key = lambda a: np.ascontiguousarray(a).view(np.dtype((np.void, 12))).ravel()
+        both, i_card, i_cpu = np.intersect1d(key(pts), key(ref_pts), return_indices=True)
+        points += len(scans[k])
+        moved += len(pts) + len(ref_pts) - 2 * len(both)
+        diff = np.abs(nrm[i_card] - ref_nrm[i_cpu]).max(-1)
+        common += len(both)
+        within += int((diff <= 1e-4).sum())
+        worst = max(worst, float(diff.max()))
+        say(f"preprocess scan {k}: card {len(pts)} survivors, CPU {len(ref_pts)}, "
+            f"{len(pts) - len(both)} only on the card, {len(ref_pts) - len(both)} only on the "
+            f"CPU; normals of {len(both)} common survivors: max abs diff {diff.max():.3e}, "
+            f"{int((diff > 1e-4).sum())} above 1e-4, zero rows card "
+            f"{int((nrm == 0).all(-1).sum())} CPU {int((ref_nrm == 0).all(-1).sum())}; CPU "
+            f"plain path {cpu_s:.2f} s")
+    if moved > 0.0005 * points:
+        raise RuntimeError(f"preprocessing: {moved} survivors differ between card and CPU, "
+                           f"over 0.05% of {points} points")
+    if within < 0.999 * common:
+        raise RuntimeError(f"preprocessing: normals within 1e-4 on {within} of {common} "
+                           f"common survivors (< 99.9%); worst {worst:.3e}")
+    say(f"preprocess card vs CPU plain path on 2 scans: {moved} of {points} survivors differ "
+        f"(limit 0.05%), normals within 1e-4 on {within} of {common} common survivors "
+        f"({within / common:.5f}, limit 0.999), worst {worst:.3e} on {card}")
+
+
+def run_disk_phase(scans, card):
+    """Phase 9: the offline pipeline from disk through the command line, on
+    the card, at the default KITTI width."""
+    import os
+    import shutil
+    import tempfile
+
+    from delora_tpu_torch import cli
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.data.preprocess import staging_capacity
+    from delora_tpu_torch.ops.normals import NormalsSpec, normals_for_points
+    from delora_tpu_torch.ops.projection import ProjectionSpec, project_scan_batch
+    from delora_tpu_torch.training.tester import Tester
+    from delora_tpu_torch.utils.poses import read_poses_from_text_file
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+    try:
+        write_kitti_layout(os.path.join(root, "raw"), scans)
+        kitti = {"data_path": os.path.join(root, "raw", "sequences"),
+                 "preprocessed_path": os.path.join(root, "preprocessed"),
+                 "pose_data_path": os.path.join(root, "raw", "poses"),
+                 "training_identifiers": [0], "testing_identifiers": [0]}
+        common = [f"kitti={json.dumps(kitti)}", f"log_dir={json.dumps(os.path.join(root, 'runs'))}"]
+        ckpt = os.path.join(root, "ckpt")
+        train = common + [f"batch_size={TRAIN_B}", "unsupervised_at_start=true",
+                          "eval_every_epochs=1", "checkpoint_keep_every=2",
+                          f"checkpoint_dir={json.dumps(ckpt)}"]
+
+        # 1. preprocess on the card.
+        reset_launches()
+        t0 = time.perf_counter()
+        pre = cli.main(["preprocess", "--set"] + common)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        pre_launches = path_launches("preprocess", {"placement": len(scans)})
+        config = default_config(mode="preprocessing")
+        pspec = ProjectionSpec.from_config(config, "kitti", preprocessing=True)
+        nspec = NormalsSpec.from_config(config, "kitti")
+        pts, valid = preprocess_input(scans[0], pspec, staging_capacity(config, "kitti", pspec))
+        proj = project_scan_batch(pts, valid, pspec)
+        project_ms = cuda_ms(lambda: project_scan_batch(pts, valid, pspec), reps=5, inner=5)
+        normals_ms = cuda_ms(lambda: normals_for_points(proj.image[0, ..., :3], proj.u[0],
+                                                        proj.v[0], proj.survivor[0], nspec),
+                             reps=5, inner=5)
+        per_scan = {k: v / len(scans) * 1e3 for k, v in pre.seconds.items()}
+        say(f"preprocess (cli, card): {len(scans)} scans at {pspec.height}x{pspec.width} in "
+            f"{pre_s:.2f} s, launches {pre_launches}; host "
+            f"clock a scan: " + ", ".join(f"{k} {v:.2f} ms" for k, v in per_scan.items())
+            + f"; CUDA events a scan: projection {project_ms:.3f} ms, normals "
+            f"{normals_ms:.3f} ms on {card}")
+        check_preprocessing_against_cpu(root, scans, card)
+
+        # 2. train at full width for 3 epochs, with evaluation and checkpoints.
+        # One packed placement and one matcher launch a step; the evaluation
+        # projects on the host.
+        reset_launches()
+        trainer = cli.main(["train", "--epochs", "3", "--run-name", "disk", "--set"] + train)
+        torch.cuda.synchronize()
+        records = epoch_records(trainer)
+        steps = sum(int(r["steps"]) for r in records)
+        train_launches = path_launches("disk_train",
+                                       {"placement_packed": steps, "window_match": steps})
+        files = sorted(os.listdir(ckpt))
+        if not {"latest", "epoch_00000", "epoch_00002", "best"} <= set(files):
+            raise RuntimeError(f"disk train: checkpoints {files}")
+        if len(records) != 3 or not all(np.isfinite(v) for r in records for v in r.values()):
+            raise RuntimeError(f"disk train: epoch metrics {records}")
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        eval_scores = [r["eval_score"] for r in metrics_records(trainer) if "eval_score" in r]
+        if len(eval_scores) != 3 or trainer.best_eval is None:
+            raise RuntimeError(f"disk train: eval scores {eval_scores}")
+        say(f"disk train (cli, card, {n_params} parameters, B={TRAIN_B}, bf16): set-up "
+            f"{trainer.setup_seconds:.2f} s ({trainer.num_pairs} pairs, tables on the card: "
+            f"{trainer.feeds['kitti'].tables is not None}); epochs " + "; ".join(
+                f"{r['step']}: loss {r['loss']:.6f}, {r['steps']:.0f} steps, "
+                f"{r['scan_pairs_per_sec']:.1f} pairs/s" for r in records)
+            + f"; eval scores {eval_scores}, best "
+            f"{trainer.best_eval}; checkpoints {files}; launches {train_launches} "
+            f"for {steps} steps on {card}")
+
+        # 3. resume from 'latest' for a fourth epoch.
+        reset_launches()
+        resumed = cli.main(["train", "--epochs", "4", "--run-name", "disk_resume",
+                            "--checkpoint", os.path.join(ckpt, "latest"), "--set"] + train)
+        torch.cuda.synchronize()
+        resumed_records = epoch_records(resumed)
+        if resumed.start_epoch != 3 or [r["step"] for r in resumed_records] != [3]:
+            raise RuntimeError(f"resume started at {resumed.start_epoch}: {resumed_records}")
+        steps = int(resumed_records[0]["steps"])
+        resume_launches = path_launches("disk_resume",
+                                        {"placement_packed": steps, "window_match": steps})
+        say(f"disk resume: started at epoch {resumed.start_epoch}, unsupervised "
+            f"{not resumed.supervised}, loss {resumed_records[0]['loss']:.6f}, launches "
+            f"{resume_launches}")
+
+        # 4. one epoch streamed from the host.
+        reset_launches()
+        streamed = cli.main(["train", "--epochs", "1", "--run-name", "disk_streamed",
+                             "--set"] + train + [
+            "hbm_cache_scans=8", "eval_every_epochs=0",
+            f"checkpoint_dir={json.dumps(os.path.join(root, 'ckpt_streamed'))}"])
+        torch.cuda.synchronize()
+        stream_rec = epoch_records(streamed)[0]
+        steps = int(stream_rec["steps"])
+        stream_launches = path_launches("disk_streamed",
+                                        {"placement_packed": steps, "window_match": steps})
+        if streamed.feeds["kitti"].tables is not None or not np.isfinite(stream_rec["loss"]):
+            raise RuntimeError("streamed epoch: tables on the card or loss not finite")
+        say(f"disk streamed (hbm_cache_scans 8 < {len(scans)} scans): set-up "
+            f"{streamed.setup_seconds:.2f} s, {stream_rec['steps']:.0f} steps, loss "
+            f"{stream_rec['loss']:.6f}, {stream_rec['scan_pairs_per_sec']:.1f} pairs/s "
+            f"(first epoch, host clock), launches {stream_launches} on {card}")
+
+        # 5. test the best checkpoint: the cached path projects on the host.
+        reset_launches()
+        t0 = time.perf_counter()
+        results = cli.main(["test", "--checkpoint", os.path.join(ckpt, "best"),
+                            "--run-name", "disk_test"])
+        test_s = time.perf_counter() - t0
+        path_launches("disk_test", {})
+        embedded = default_config(base=trainer.config)
+        poses = read_poses_from_text_file(os.path.join(
+            embedded["log_dir"], embedded["experiment"], "disk_test", "artifacts",
+            "poses_kitti_00.txt"))
+        if poses.shape != (len(scans), 4, 4):
+            raise RuntimeError(f"pose file holds {poses.shape}")
+        for pose in poses:
+            check_rigid(pose)
+        rpe = results["kitti"][0]
+        if rpe is None or not np.isfinite(rpe).all():
+            raise RuntimeError(f"test metrics not finite: {rpe}")
+        say(f"disk test (cli, card): {len(poses)} poses finite and rigid, RPE t {rpe[0]:.4f} "
+            f"m/step, r {rpe[1]:.4f} deg/step (a {len(scans) - 1} m drive, under the 100 m "
+            f"KITTI segment); {test_s:.2f} s, {(len(scans) - 1) / test_s:.1f} pairs/s with "
+            f"set-up and the host projection of every scan, on {card}")
+
+        # 6. the tester's loss evaluation: the raw feed on the card.
+        test_cfg = default_config({"inference_only": False}, base=trainer.config,
+                                  mode="testing")
+        tester = Tester(dict(test_cfg, checkpoint=os.path.join(ckpt, "best")),
+                        run_name="disk_losses")
+        # The exact rule for the target and the source, the packed rule for
+        # the warped source, and one matcher launch, a batch.
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = tester.evaluate_losses("kitti", 0)
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t0
+        batches = -(-(len(scans) - 1) // tester.batch_size)
+        loss_launches = path_launches("test_losses", {
+            "placement": 2 * batches, "placement_packed": batches, "window_match": batches})
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise RuntimeError(f"test losses not finite: {losses}")
+        say(f"disk test losses (raw feed, card): {batches} batches, loss {losses['loss']:.6f}, "
+            f"po2pl {losses['loss_po2pl']:.6f}, pairs {losses['num_po2pl_pairs']:.1f}, "
+            f"launches {loss_launches}, {loss_s:.2f} s on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
     from delora_tpu_torch.config import default_config
     from delora_tpu_torch.ops.cuda import build as cuda_build
-    from delora_tpu_torch.ops.cuda.nn_search import nn_search
-    from delora_tpu_torch.ops.cuda.placement import placement
-    from delora_tpu_torch.ops.cuda.window_match import (
-        window_match,
-        window_match_indices,
-        window_match_soft,
-    )
     from delora_tpu_torch.ops.projection import ProjectionSpec
     from delora_tpu_torch.training.trainer import Trainer
 
@@ -1607,6 +1965,8 @@ def main() -> None:
         f"pairs, {n_params} parameters, {time.perf_counter() - t0:.1f} s")
 
     exact, err_exact = check_exact_placement(spec, rng, card)
+    exact_pre, err_pre = check_exact_placement_preprocess(scans[0], card)
+    err_exact = max(err_exact, err_pre)
     packed, err_packed = check_packed_placement(trainer, spec, rng, card)
     err_exact = max(err_exact, check_placement_after_larger_call(trainer, spec, rng, card))
     matcher, err_matcher = check_matcher(trainer, spec, scans[0], rng, card)
@@ -1614,9 +1974,8 @@ def main() -> None:
     index, err_index = check_index_matcher(trainer, spec, card)
     nn, err_nn = check_nn_search(trainer, scans, normals, spec, rng, card)
 
-    serving_launches = run_serving(config, scans[:12], spec, card)
-    main_path, _ = run_training(trainer, card, "training", 12, {
-        "placement": (placement, 1), "window_match": (window_match, 1)})
+    run_serving(config, scans[:12], spec, card)
+    run_training(trainer, card, "main", 12, {"placement_packed": 1, "window_match": 1})
     step_split(trainer, card, "training")
     check_fp32_step(trainer, "training")
     check_loss_falls(trainer)
@@ -1625,10 +1984,8 @@ def main() -> None:
     recipe = Trainer(default_config({"batch_size": TRAIN_B, **RECIPE}), drive_scans,
                      device="cuda", generator=torch.Generator().manual_seed(SEED + 3))
     say(f"recipe: {RECIPE}, feed {recipe.feed}, B={TRAIN_B}, bf16")
-    recipe_launches, _ = run_training(recipe, card, "recipe", 8, {
-        "window_match_soft": (window_match_soft, 1),
-        "window_match_index": (window_match_indices, 1),
-        "placement": (placement, 1), "window_match": (window_match, 0)},
+    run_training(recipe, card, "recipe", 8, {
+        "window_match_soft": 1, "window_match_index": 1, "placement_packed": 1},
         positive=("loss_po2pl_rev",))
     step_split(recipe, card, "recipe")
     check_ema(recipe, card)
@@ -1638,11 +1995,10 @@ def main() -> None:
     # Phase 8: brute correspondence on the raw feed.
     brute = Trainer(default_config({"batch_size": TRAIN_B, "correspondence": "brute"}),
                     drive_scans, device="cuda", generator=torch.Generator().manual_seed(SEED + 4))
-    say(f"brute: feed {brute.feed}, tables {tuple(brute.tables[0].shape)} padded points, "
-        f"B={TRAIN_B}, bf16")
-    brute_launches, _ = run_training(brute, card, "brute", 6, {
-        "nn_search": (nn_search, 1), "placement": (placement, 2),
-        "window_match": (window_match, 0)})
+    say(f"brute: feed {brute.feed}, tables {tuple(brute.feeds['kitti'].tables[0].shape)} "
+        f"padded points, B={TRAIN_B}, bf16")
+    # The raw feed projects the target and the source under the exact rule.
+    run_training(brute, card, "brute", 6, {"nn_search": 1, "placement": 2})
     step_split(brute, card, "brute")
     del brute
     small = Trainer(default_config({"batch_size": BRUTE_CHECK_B, "correspondence": "brute",
@@ -1652,31 +2008,39 @@ def main() -> None:
     say(f"brute fp32 check on a reduced cloud: max_points {BRUTE_CHECK_POINTS} (of up to "
         f"{max(map(len, scans))} a scan), B={BRUTE_CHECK_B}")
     check_fp32_step(small, "brute")
+    del small, trainer
 
-    def row(name_, source, replaces, launches, err, t):
+    # Phase 9: the offline pipeline from disk through the command line.
+    run_disk_phase(scans, card)
+
+    def row(name_, source, replaces, err, t):
+        by_path = {path: counts[name_] for path, counts in PATH_LAUNCHES.items()
+                   if counts[name_]}
         return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                "launches": sum(by_path.values()), "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t.get("bound_by", "bytes"),
                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-                **{k: t[k] for k in ("floor_ms", "floor_instructions_per_candidate") if k in t}}
+                "launches_by_path": by_path,
+                **{k: t[k] for k in ("floor_ms", "floor_instructions_per_candidate",
+                                     "preprocess_shape") if k in t}}
 
     matcher_src = "delora_tpu_torch/csrc/window_match.cu"
     print(card, flush=True)
     print(json.dumps({"kernels": [
         row("placement", "delora_tpu_torch/csrc/placement.cu",
-            "delora_tpu/ops/pallas/placement.py:72", serving_launches, err_exact, exact),
+            "delora_tpu/ops/pallas/placement.py:72", err_exact,
+            dict(exact, preprocess_shape=exact_pre)),
         row("placement_packed", "delora_tpu_torch/csrc/placement.cu",
-            "delora_tpu/ops/pallas/placement.py:72", main_path["placement"], err_packed,
-            packed),
+            "delora_tpu/ops/pallas/placement.py:72", err_packed, packed),
         row("window_match", matcher_src, "delora_tpu/ops/pallas/window_match.py:249",
-            main_path["window_match"], err_matcher, matcher),
+            err_matcher, matcher),
         row("window_match_soft", matcher_src, "delora_tpu/ops/pallas/window_match.py:249",
-            recipe_launches["window_match_soft"], err_soft, soft),
+            err_soft, soft),
         row("window_match_index", matcher_src, "delora_tpu/ops/correspondence.py:495",
-            recipe_launches["window_match_index"], err_index, index),
+            err_index, index),
         row("nn_search", "delora_tpu_torch/csrc/nn_search.cu",
-            "delora_tpu/ops/pallas/nn_search.py:172", brute_launches["nn_search"], err_nn, nn),
+            "delora_tpu/ops/pallas/nn_search.py:172", err_nn, nn),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

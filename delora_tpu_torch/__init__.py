@@ -5,10 +5,14 @@ same functions in PyTorch, with hand-written CUDA kernels for Hopper where the
 reference has Pallas kernels. It imports no JAX and nothing of
 ``delora_tpu``.
 
-Ported so far: the serving path (``serving/stream.py::StreamingOdometry``)
-and the training step of the main path with a trainer that takes its steps
-from in-memory scans (``training/trainer.py::Trainer``: fully-cached feed,
-image-space matcher, hard matching).
+Ported so far: the serving path (``serving/stream.py::StreamingOdometry``);
+the training step of the main path, the quality recipe and brute
+correspondence (``training/step.py``); the trainer, from in-memory scans or
+from disk with checkpoints, resume and evaluation
+(``training/trainer.py::Trainer``); preprocessing (``data/preprocess.py``),
+the scan-pair dataset (``data/dataset.py``) and the ``Tester``
+(``training/tester.py``); the command line ``python -m delora_tpu_torch.cli
+preprocess|train|test|serve``.
 """
 
 from __future__ import annotations

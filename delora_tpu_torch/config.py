@@ -1,18 +1,24 @@
 """The settings of the ported slices, as Python data.
 
 The same flat dict that ``delora_tpu.config.load_config()`` builds from its
-YAML stack, cut to the keys the serving and training paths read: the KITTI
-sensor spec, the model keys, and the training, loss and correspondence keys.
-Values are those of ``delora_tpu/configs/*.yaml``; fields of view are written
-in degrees and converted to radians once, by the same formula, so the floats
-are identical. Keys the YAML leaves commented out (``lr_decay_steps``,
-``lr_min_ratio``, ``seed``) are read with the reference's defaults where they
-are used.
+YAML stack, cut to the keys the ported paths read: the KITTI sensor and
+dataset spec, the normal-estimation keys, the deployment keys of the offline
+pipeline (paths, checkpoints, evaluation, the feed), the model keys, and the
+training, loss and correspondence keys. Values are those of
+``delora_tpu/configs/*.yaml``; fields of view are written in degrees and
+converted to radians once, by the same formula, so the floats are identical.
+Keys the YAML leaves out or commented out (``lr_decay_steps``,
+``lr_min_ratio``, ``seed``, ``eval_batch_size``, ``prewarm_cache``,
+``prewarm_threads``, ``training_run_name``, ``auto_resume``, ``checkpoint``)
+are read with the reference's defaults where they are used. Each dataset's
+``data_identifiers`` follow the mode (training, testing or preprocessing) as
+in the reference's ``load_config``.
 
 Settings whose code is not ported yet raise in validation rather than run
-silently: augmentation, projective correspondence, ``fused_adam`` and the
-cached-target feed (target cached, source raw). Soft matching, reverse po2pl,
-the parameter EMA, dropout and brute correspondence run.
+silently: augmentation, projective correspondence, ``fused_adam``, the
+cached-target feed (target cached, source raw), rosbag datasets, the native
+C++ batcher (``native_io: true``) and ``profile_epochs``. Soft matching,
+reverse po2pl, the parameter EMA, dropout and brute correspondence run.
 
 ``use_pallas_nn`` is carried for parity and read by nothing: the reference
 picks between two routes to the same exact 1-NN with it (its Pallas kernel or
@@ -29,14 +35,38 @@ from typing import Any, Dict, Mapping, Optional
 _DEFAULTS: Dict[str, Any] = {
     # datasets.yaml
     "horizontal_field_of_view": [-179.9, 179.9],      # degrees
+    "min_num_points_in_neighborhood_to_determine_point_class": 10,
+    "epsilon_range": 0.5,
     "kitti": {
+        "training_identifiers": [0, 1, 2, 3, 4, 5, 6, 7, 8],
+        "testing_identifiers": [9, 10],
         "vertical_field_of_view": [-24.5, 2.0],       # degrees
         "vertical_cells": 64,
         "horizontal_cells": 720,
+        "horizontal_cells_preprocessing": 2250,
+        "neighborhood_side_length": [7, 11],
         "max_points": 131072,
+        "data_path": "./datasets/kitti/data_odometry_velodyne/dataset/sequences",
+        "preprocessed_path": "./datasets/kitti/preprocessed/sequences",
+        "pose_data_path": "./datasets/kitti/data_odometry_poses/dataset/poses",
+        "dataset_type": "kitti",
     },
     # deployment.yaml
     "datasets": ["kitti"],
+    "mode": "training",
+    "experiment": "trainings_experiments_1",
+    "store_dataset_in_RAM": True,
+    "prefetch_depth": 2,
+    "hbm_cache_scans": 3072,
+    "native_io": "auto",
+    "eval_every_epochs": 0,
+    "inference_only": True,
+    "visualize_images": True,
+    "checkpoint_dir": "./checkpoints_tpu",
+    "checkpoint_every_epochs": 1,
+    "checkpoint_keep_every": 5,
+    "log_dir": "./runs",
+    "use_mlflow": False,
     "compute_dtype": "bfloat16",
     "unsupervised_at_start": False,
     "steps_per_dispatch": 32,
@@ -105,14 +135,20 @@ def _fov_to_radians(settings: Dict[str, Any]) -> Dict[str, Any]:
     return settings
 
 
+_MODES = ("training", "testing", "preprocessing")
+
+
 def default_config(
     overrides: Optional[Mapping[str, Any]] = None,
     base: Optional[Mapping[str, Any]] = None,
+    mode: Optional[str] = None,
 ) -> Dict[str, Any]:
     """The slice's flat config dict. ``overrides`` are in the YAML's units
     (fields of view in degrees) and are deep-merged over ``base``, a dict this
     function returned before (for example a checkpoint's), else over the
-    defaults."""
+    defaults. ``mode`` (else the config's own) sets each dataset's
+    ``data_identifiers``: the training identifiers, the testing ones, or for
+    preprocessing the sorted union of both (reference config.py:83-97)."""
     config = _fov_to_radians(copy.deepcopy(_DEFAULTS))
     if base is not None:
         # A base from an older slice may lack the keys added since.
@@ -120,6 +156,19 @@ def default_config(
     if overrides:
         _deep_merge(config, _fov_to_radians(copy.deepcopy(dict(overrides))))
     config["_fov_in_radians"] = True
+    if mode is not None:
+        config["mode"] = mode
+    if config["mode"] not in _MODES:
+        raise ValueError(f"Unknown mode: {config['mode']!r}")
+    for dataset in config["datasets"]:
+        spec = config.get(dataset, {})
+        if config["mode"] == "training":
+            spec["data_identifiers"] = list(spec.get("training_identifiers", []))
+        elif config["mode"] == "testing":
+            spec["data_identifiers"] = list(spec.get("testing_identifiers", []))
+        else:
+            spec["data_identifiers"] = sorted(set(spec.get("training_identifiers", []))
+                                              | set(spec.get("testing_identifiers", [])))
     validate(config)
     return config
 
@@ -161,6 +210,18 @@ def validate(config: Mapping[str, Any]) -> None:
             raise NotImplementedError(
                 f"{key}={config[key]!r} turns on {what}, which is not ported yet "
                 f"(the port runs {key}={ported!r})")
+    for dataset in config["datasets"]:
+        kind = config.get(dataset, {}).get("dataset_type", "kitti")
+        if kind != "kitti":
+            raise NotImplementedError(
+                f"dataset_type {kind!r} of {dataset!r} is not ported; the port reads KITTI "
+                f"velodyne scans")
+    if config.get("native_io", "auto") not in ("auto", False):
+        raise NotImplementedError(
+            f"native_io={config['native_io']!r} asks for the native C++ batcher, which is not "
+            f"ported; the port's loader is the Python producer thread (native_io: auto)")
+    if config.get("profile_epochs"):
+        raise NotImplementedError("profile_epochs is not ported")
     if training_feed(config) == "cached":
         raise NotImplementedError(
             "the cached-target feed (cache_target_projections: true, "

@@ -115,7 +115,8 @@ def placement(pix, r, vals, height: int, width: int, packed: bool = False,
     under the exact or (``packed``) the packed winner rule.
 
     On CUDA tensors it launches the kernel (and counts the call in
-    ``placement.launches``); on CPU tensors it runs :func:`placement_plain`.
+    ``placement.launches_exact`` or ``placement.launches_packed``, by rule);
+    on CPU tensors it runs :func:`placement_plain`.
     Ranges of in-range points must be finite and not -0.0 (exact rule) or
     > 0 (packed rule); projection gives ranges > 0.
     """
@@ -138,11 +139,15 @@ def placement(pix, r, vals, height: int, width: int, packed: bool = False,
     if err != 0:
         _workspaces.pop((index, stream), None)
         raise RuntimeError(f"placement kernel launch failed with CUDA error {err}")
-    placement.launches += 1
+    if packed:
+        placement.launches_packed += 1
+    else:
+        placement.launches_exact += 1
     return out
 
 
-placement.launches = 0
+placement.launches_exact = 0
+placement.launches_packed = 0
 
 # Winner keys, one buffer per (device index, raw stream), all bytes 0xFF (the
 # empty key at either width) between calls: the kernel's write pass resets

@@ -44,11 +44,14 @@ class ProjectionSpec(NamedTuple):
     fov_right: float            # horizontal FoV upper bound (~ +pi)
 
     @classmethod
-    def from_config(cls, config, dataset: str = "kitti"):
+    def from_config(cls, config, dataset: str = "kitti", preprocessing: bool = False):
+        """The train-time geometry, or with ``preprocessing`` the offline
+        normal-estimation width (``horizontal_cells_preprocessing``)."""
         spec = config[dataset]
+        width_key = "horizontal_cells_preprocessing" if preprocessing else "horizontal_cells"
         return cls(
             height=int(spec["vertical_cells"]),
-            width=int(spec["horizontal_cells"]),
+            width=int(spec[width_key]),
             fov_down=float(spec["vertical_field_of_view"][0]),
             fov_up=float(spec["vertical_field_of_view"][1]),
             fov_left=float(config["horizontal_field_of_view"][0]),
@@ -198,14 +201,22 @@ def project_compact_exact_batch(points: torch.Tensor, valid: torch.Tensor,
     return CompactImageProjection(image, comp[:, :cap], comp_mask)
 
 
+def project_image_batch(points: torch.Tensor, valid: torch.Tensor,
+                        spec: ProjectionSpec) -> torch.Tensor:
+    """Image-only projection, batched: ``[B, N, C>=3]`` points, ``[B, N]``
+    bool -> ``[B, H, W, C+1]`` float32; each pixel holds its closest point's
+    channels and range, zeros if empty (the reference's ``vmap`` of
+    ``project_image``)."""
+    points = points.to(torch.float32).contiguous()
+    r, _, _, _, pix = _pixel_coords(points, valid, spec)
+    return placement(pix.contiguous(), r.contiguous(), points, spec.height, spec.width)
+
+
 def project_image(points: torch.Tensor, valid: torch.Tensor,
                   spec: ProjectionSpec) -> torch.Tensor:
     """Image-only projection of one scan: ``[N, C>=3]`` points, ``[N]`` bool
-    -> ``[H, W, C+1]`` float32; each pixel holds its closest point's channels
-    and range, zeros if empty."""
-    points = points.to(torch.float32).contiguous()
-    r, _, _, _, pix = _pixel_coords(points, valid, spec)
-    return placement(pix[None], r[None], points[None], spec.height, spec.width)[0]
+    -> ``[H, W, C+1]``."""
+    return project_image_batch(points[None], valid[None], spec)[0]
 
 
 # The reference's XLA placement works in 1024-pixel tiles, each reading a

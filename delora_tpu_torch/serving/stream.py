@@ -13,7 +13,7 @@ from __future__ import annotations
 import json
 import sys
 import time
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ from delora_tpu_torch import resolve_device
 from delora_tpu_torch.data.kitti import read_velodyne_bin
 from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
 from delora_tpu_torch.ops.projection import ProjectionSpec, project_image
+from delora_tpu_torch.training.checkpoint import deploy_weights, load_checkpoint
 from delora_tpu_torch.training.step import forward_pose
 from delora_tpu_torch.utils.poses import reorthonormalize_np
 
@@ -48,16 +49,21 @@ def filter_scan(points: np.ndarray) -> np.ndarray:
     return points[keep]
 
 
-def save_checkpoint(path: str, config: Mapping, model: torch.nn.Module) -> None:
-    """Write a port checkpoint: ``{"config", "model"}`` with a CPU state_dict."""
-    torch.save({"config": dict(config),
-                "model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, path)
+def load_serving_checkpoint(path: str) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """-> (embedded config, weights to serve) of a trainer checkpoint
+    (``training/checkpoint.py``: its deploy weights, the EMA's when the run
+    tracked one, as the reference's stream.py:85-88) or of the older serving
+    file ``{"config", "model"}``, which the port no longer writes."""
+    payload = load_checkpoint(path)
+    if "meta" in payload:
+        return payload["meta"]["parameters"], deploy_weights(payload["state"])
+    return payload["config"], payload["model"]
 
 
 class StreamingOdometry:
-    """Parameters come from a port checkpoint (``torch.save`` of
-    ``{"config", "model"}``), from ``params`` (a state_dict, for example
-    ``params_from_jax(...)``), or else from the seeded default initialisation."""
+    """Parameters come from a checkpoint (:func:`load_serving_checkpoint`),
+    from ``params`` (a state_dict, for example ``params_from_jax(...)``), or
+    else from the seeded default initialisation."""
 
     def __init__(self, config, checkpoint: Optional[str] = None,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -69,7 +75,7 @@ class StreamingOdometry:
         self.pspec = ProjectionSpec.from_config(config, dataset)
         self.model = OdometryModel(ModelConfig.from_config(config))
         if checkpoint:
-            params = torch.load(checkpoint, map_location="cpu", weights_only=True)["model"]
+            params = load_serving_checkpoint(checkpoint)[1]
         if params is not None:
             self.model.load_state_dict(params)
         self.model.to(self.device).eval()

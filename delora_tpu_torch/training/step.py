@@ -5,7 +5,8 @@ The port of ``delora_tpu/training/step.py``'s ``forward_pose``,
 ``StepConfig``, ``ScanPairBatch``, ``FullyCachedBatch``, ``loss_and_metrics``,
 ``_loss_core``, ``_loss_tail``, ``loss_and_metrics_fullcached`` (augmentation
 off) and ``optax_global_norm``, with ``train_step`` in place of the jitted
-``make_train_step`` / ``make_train_step_fullcached``. One step of the image
+``make_train_step`` / ``make_train_step_fullcached`` and ``infer_step`` in
+place of ``make_infer_step``. One step of the image
 matcher:
 
   1. model forward on the range images -> T [B, 4, 4] (dropout in training
@@ -58,6 +59,7 @@ from delora_tpu_torch.ops.projection import (
     compute_uv,
     gather_image_attribute,
     project_compact_exact_batch,
+    project_image_batch,
     project_image_packed_batch,
     project_scan_batch,
 )
@@ -291,16 +293,17 @@ def loss_and_metrics_fullcached(model, batch: FullyCachedBatch, cfg: StepConfig,
                       batch.src_normals, batch.src_valid, cfg, generator)
 
 
-def _pair_normalization(batch: ScanPairBatch) -> ScanPairBatch:
+def _pair_normalization(batch: ScanPairBatch) -> Tuple[ScanPairBatch, torch.Tensor]:
     """Both clouds divided by the mean of their mean ranges over valid points
-    (reference step.py:136-147)."""
+    (reference step.py:136-147) -> (batch, the [B] scales)."""
     def mean_range(p, m):
         m = m.to(p.dtype)
         return (torch.linalg.norm(p, dim=-1) * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
 
-    s = (0.5 * (mean_range(batch.points_1, batch.valid_1)
-                + mean_range(batch.points_2, batch.valid_2)))[:, None, None]
-    return batch._replace(points_1=batch.points_1 / s, points_2=batch.points_2 / s)
+    scale = 0.5 * (mean_range(batch.points_1, batch.valid_1)
+                   + mean_range(batch.points_2, batch.valid_2))
+    s = scale[:, None, None]
+    return batch._replace(points_1=batch.points_1 / s, points_2=batch.points_2 / s), scale
 
 
 def _loss_core(model, image_1, target_normal_image, points_2, normals_2, valid_2,
@@ -327,7 +330,7 @@ def loss_and_metrics(model, batch: ScanPairBatch, cfg: StepConfig,
     """Loss and metrics of one raw :class:`ScanPairBatch` (augmentation off):
     both scans are projected here. ``generator`` draws the dropout masks."""
     if cfg.normalization_scaling:
-        batch = _pair_normalization(batch)
+        batch, _ = _pair_normalization(batch)
     spec = cfg.proj
     if cfg.correspondence != "brute" and spec.height * spec.width < (1 << 16):
         # Target image and normal image from one placement, normals riding.
@@ -344,6 +347,23 @@ def loss_and_metrics(model, batch: ScanPairBatch, cfg: StepConfig,
         brute_target = (batch.points_1, proj_1.survivor, batch.normals_1)
     return _loss_core(model, image_1, target_normal_image, batch.points_2, batch.normals_2,
                       batch.valid_2, cfg, generator, brute_target)
+
+
+@torch.no_grad()
+def infer_step(model, batch: ScanPairBatch, cfg: StepConfig) -> torch.Tensor:
+    """Inference on a raw batch -> ``[B, 4, 4]`` relative transforms
+    (reference ``make_infer_step``, step.py:683-701): both scans projected to
+    range images, the model forward without dropout, and under pair
+    normalization the translation multiplied back by the pair's scale."""
+    scale = None
+    if cfg.normalization_scaling:
+        batch, scale = _pair_normalization(batch)
+    image_1 = project_image_batch(batch.points_1, batch.valid_1, cfg.proj)
+    image_2 = project_image_batch(batch.points_2, batch.valid_2, cfg.proj)
+    T = forward_pose(model, image_1, image_2, deterministic=True)
+    if scale is not None:
+        T[:, :3, 3] *= scale[:, None]
+    return T
 
 
 def optax_global_norm(tensors) -> torch.Tensor:

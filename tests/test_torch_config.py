@@ -57,7 +57,10 @@ def test_config_rejects_bad_values():
     {"correspondence": "projective"},
     {"fused_adam": True},
     {"cache_source_projections": False},
-], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+    {"native_io": True},
+    {"profile_epochs": [1]},
+    {"kitti": {"dataset_type": "rosbag"}},
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()).replace(" ", ""))
 def test_unported_settings_raise(override):
     """Settings whose code the port does not have are refused, never run
     (``cache_source_projections: false`` selects the cached-target feed)."""

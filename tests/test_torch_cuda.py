@@ -72,13 +72,23 @@ def pixel_args(cuda, seed, n, width=64):
     return pix, r, torch.from_numpy(vals).to(cuda), torch.from_numpy(pts).to(cuda)
 
 
+def launch_counts():
+    """The placement wrapper's launch counts: (exact rule, packed rule)."""
+    return placement.launches_exact, placement.launches_packed
+
+
+def one_more(before, packed=False):
+    """``before`` with one launch of the ``packed`` or the exact rule added."""
+    return (before[0] + (not packed), before[1] + bool(packed))
+
+
 @pytest.mark.cuda
 def test_placement_kernel_bit_equal_to_plain_on_cuda(cuda):
     pix, r, _, pts = pixel_args(cuda, 5, 4096)
-    before = placement.launches
+    before = launch_counts()
     out = placement(pix, r, pts, H, 64)
     torch.cuda.synchronize()
-    assert placement.launches == before + 1
+    assert launch_counts() == one_more(before)
     assert torch.equal(out, placement_plain(pix, r, pts, H, 64))
 
 
@@ -86,20 +96,21 @@ def test_placement_kernel_bit_equal_to_plain_on_cuda(cuda):
 @pytest.mark.parametrize("append_range", [False, True])
 def test_packed_placement_kernel_bit_equal_to_plain_on_cuda(cuda, append_range):
     pix, r, vals, _ = pixel_args(cuda, 4, 2048)
-    before = placement.launches
+    before = launch_counts()
     out = placement(pix, r, vals, H, 64, packed=True, append_range=append_range)
     torch.cuda.synchronize()
-    assert placement.launches == before + 1
+    assert launch_counts() == one_more(before, packed=True)
     assert torch.equal(out, placement_plain(pix, r, vals, H, 64, packed=True,
                                             append_range=append_range))
 
 
 def check_placement(pix, r, vals, height, width, **kw):
-    """One wrapper call: one launch counted, bit-equal to the plain version."""
-    before = placement.launches
+    """One wrapper call: one launch counted under its rule, bit-equal to the
+    plain version."""
+    before = launch_counts()
     out = placement(pix, r, vals, height, width, **kw)
     torch.cuda.synchronize()
-    assert placement.launches == before + 1
+    assert launch_counts() == one_more(before, kw.get("packed", False))
     ref = placement_plain(pix, r, vals, height, width, **kw)
     assert torch.equal(out, ref)
     return ref
@@ -168,11 +179,11 @@ def test_placement_on_a_second_stream(cuda):
     pix, r, vals, _ = pixel_args(cuda, 11, 4096)
     stream = torch.cuda.Stream()
     torch.cuda.synchronize()
-    before = placement.launches
+    before = launch_counts()
     with torch.cuda.stream(stream):
         out = placement(pix, r, vals, H, 64, packed=True)
     stream.synchronize()
-    assert placement.launches == before + 1
+    assert launch_counts() == one_more(before, packed=True)
     assert (cuda.index or 0, stream.cuda_stream) in placement_module._workspaces
     assert torch.equal(out, placement_plain(pix, r, vals, H, 64, packed=True))
 
@@ -187,10 +198,10 @@ def test_placement_error_raises_and_drops_the_workspace(cuda, monkeypatch):
     slot = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
     assert slot in placement_module._workspaces
     monkeypatch.setattr(placement_module, "key_bits", lambda packed, n: 32)
-    before = placement.launches
+    before = launch_counts()
     with pytest.raises(RuntimeError):
         placement(pix, r, vals, H, 64)
-    assert placement.launches == before
+    assert launch_counts() == before
     assert slot not in placement_module._workspaces
     monkeypatch.undo()
     check_placement(pix, r, vals, H, 64)
@@ -600,3 +611,80 @@ def test_soft_matcher_on_a_second_stream(cuda):
     assert torch.equal(out[0], ref[0])
     for a, b in zip(out[1:], ref[1:]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def street_cloud(seed, rings=64, steps=2000):
+    """A ray-cast street (ground, two facades, a far wall; 2 cm range noise,
+    5% of rays lost) over a 64-beam sensor, padded to the preprocessing
+    capacity at 64x2250 (147,456 points)."""
+    rng = np.random.default_rng(seed)
+    el = np.deg2rad(np.linspace(-24.5, 2.0, rings))
+    az = np.linspace(-math.pi, math.pi, steps, endpoint=False)
+    e, a = np.meshgrid(el, az, indexing="ij")
+    d = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)], -1).reshape(-1, 3)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.stack([np.where(d[:, 2] < 0, -1.73 / d[:, 2], np.inf),
+                      np.where(d[:, 1] < 0, -7.0 / d[:, 1], np.inf),
+                      np.where(d[:, 1] > 0, 9.0 / d[:, 1], np.inf),
+                      np.where(d[:, 0] > 0, 60.0 / d[:, 0], np.inf)]).min(0)
+    keep = (t < 80.0) & (rng.random(len(t)) > 0.05)
+    t = t[keep] + rng.normal(0, 0.02, keep.sum())
+    pts = np.zeros((147456, 3), np.float32)
+    pts[:keep.sum()] = d[keep] * t[:, None]
+    valid = np.zeros(147456, bool)
+    valid[:keep.sum()] = True
+    return pts, valid
+
+
+PREPROCESS_SPEC = tproj.ProjectionSpec(height=64, width=2250, **FOV)
+
+
+@pytest.mark.cuda
+def test_exact_placement_at_the_preprocessing_shape(cuda):
+    """The exact rule at 64x2250 with N = 147,456 (the KITTI preprocessing
+    capacity), ~115k valid: bit-equal to its plain version on the card and on
+    the CPU, one launch."""
+    pts, valid = street_cloud(80)
+    pts, valid = torch.from_numpy(pts).to(cuda)[None], torch.from_numpy(valid).to(cuda)[None]
+    r, _, _, _, pix = tproj._pixel_coords(pts, valid, PREPROCESS_SPEC)
+    args = (pix.contiguous(), r.contiguous(), pts.contiguous(), 64, 2250)
+    before = launch_counts()
+    out = placement(*args)
+    torch.cuda.synchronize()
+    assert launch_counts() == one_more(before)
+    assert torch.equal(out, placement_plain(*args))
+    assert torch.equal(out.cpu(), placement_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                                    for a in args)))
+    assert (out[..., 3] > 0).sum() > 100000
+
+
+@pytest.mark.cuda
+def test_normal_image_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``compute_normal_image`` at 64x2250 with the 7x11 patch on the card
+    against the CPU on the same image: the same "has a normal" mask and the
+    same covariances bit for bit (exact counts, single-rounded fmas), the
+    normals within 4e-6 * kappa where kappa <= 300 (the card's arccos and cos
+    may differ from the CPU's in the last bit; ``tests/test_torch_normals.py``
+    gives the bound) and within 1e-4 on at least 99.9% of them."""
+    from delora_tpu_torch.ops import normals as tnormals
+
+    pts, valid = street_cloud(81)
+    proj = tproj.project_scan_batch(torch.from_numpy(pts)[None], torch.from_numpy(valid)[None],
+                                    PREPROCESS_SPEC)
+    image = proj.image[0, ..., :3].contiguous()
+    spec = tnormals.NormalsSpec(7, 11, 0.5, 10)
+    covs = []
+    solver = tnormals.smallest_eigenvector_sym3x3
+    monkeypatch.setattr(tnormals, "smallest_eigenvector_sym3x3",
+                        lambda A, eps=1e-20: covs.append(A.cpu()) or solver(A, eps))
+    cpu = tnormals.compute_normal_image(image, spec)
+    card = tnormals.compute_normal_image(image.to(cuda), spec).cpu()
+    assert torch.equal(covs[0], covs[1])
+    has = (cpu != 0).any(-1)
+    assert torch.equal((card != 0).any(-1), has) and has.sum() > 50000
+    w = np.linalg.eigvalsh(covs[0].numpy().astype(np.float64))
+    kappa = torch.from_numpy(np.abs(w).max(-1) / np.maximum(w[..., 1] - w[..., 0], 1e-30))
+    diff = (card - cpu).abs().amax(-1).double()
+    held = has & (kappa <= 300.0)
+    assert (diff[held] <= 4e-6 * kappa[held]).all()
+    assert (diff[has] <= 1e-4).double().mean() >= 0.999

@@ -26,7 +26,8 @@ def test_port_files_found():
     for module in ("ops/cuda/nn_search.py", "ops/cuda/window_match.py",
                    "ops/cuda/placement.py", "ops/correspondence.py", "ops/projection.py",
                    "training/step.py", "training/state.py", "training/trainer.py",
-                   "models/resnet.py"):
+                   "models/resnet.py", "ops/eigh3.py", "ops/normals.py", "data/preprocess.py",
+                   "data/dataset.py", "training/checkpoint.py", "training/tester.py", "cli.py"):
         assert ROOT / "delora_tpu_torch" / module in PORT_FILES, module
 
 

@@ -92,10 +92,10 @@ def test_cpu_tensors_dispatch_to_the_plain_version(monkeypatch):
     pix = torch.tensor([[1, 1, 0, 9]], dtype=torch.int32)
     r = torch.tensor([[2.0, 1.0, 3.0, 1.0]])
     vals = torch.arange(4, dtype=torch.float32).reshape(1, 4, 1)
-    before = placement.launches
+    before = placement.launches_exact, placement.launches_packed
     out = placement(pix, r, vals, 2, 2, packed=True, append_range=False)
     assert len(calls) == 1 and calls[0][5:] == (True, False)
-    assert placement.launches == before
+    assert (placement.launches_exact, placement.launches_packed) == before
     np.testing.assert_array_equal(out.reshape(-1).numpy(), [2.0, 1.0, 0.0, 0.0])
 
 

@@ -23,6 +23,7 @@ from delora_tpu.serving import stream as jstream
 from delora_tpu.training.state import TrainState
 from delora_tpu_torch.config import default_config
 from delora_tpu_torch.serving import stream as tstream
+from delora_tpu_torch.training.checkpoint import CheckpointManager
 from delora_tpu_torch.utils.params import params_from_jax
 
 OVERRIDES = {
@@ -134,16 +135,35 @@ def test_filter_scan_and_integrator_match_jax():
         np.testing.assert_allclose(ti.integrate(T), ji.integrate(T), rtol=0, atol=1e-12)
 
 
+def write_checkpoint(directory, config, model) -> str:
+    """A trainer checkpoint (``CheckpointManager``) of ``model`` -> its path."""
+    CheckpointManager(str(directory)).save({"model": model.state_dict()}, 0, 0.0, config)
+    return str(directory / "latest")
+
+
 def test_checkpoint_round_trip(tmp_path):
     config = default_config(OVERRIDES)
     eng = tstream.StreamingOdometry(config, device="cpu")
-    path = str(tmp_path / "ckpt.pt")
-    tstream.save_checkpoint(path, config, eng.model)
-    loaded = torch.load(path, map_location="cpu", weights_only=True)
-    assert loaded["config"] == config
-    eng2 = tstream.StreamingOdometry(loaded["config"], checkpoint=path, device="cpu")
+    path = write_checkpoint(tmp_path, config, eng.model)
+    embedded, _ = tstream.load_serving_checkpoint(path)
+    assert embedded == json.loads(json.dumps(config))
+    eng2 = tstream.StreamingOdometry(embedded, checkpoint=path, device="cpu")
     for k, v in eng.model.state_dict().items():
         assert torch.equal(v, eng2.model.state_dict()[k])
+
+
+def test_serving_checkpoint_of_the_older_layout(tmp_path):
+    """A ``{"config", "model"}`` file, as the serving slice wrote them, still
+    serves its weights under its config."""
+    config = default_config(OVERRIDES)
+    eng = tstream.StreamingOdometry(config, device="cpu")
+    path = str(tmp_path / "ckpt.pt")
+    torch.save({"config": config, "model": eng.model.state_dict()}, path)
+    embedded, weights = tstream.load_serving_checkpoint(path)
+    assert embedded == config
+    eng2 = tstream.StreamingOdometry(embedded, checkpoint=path, device="cpu")
+    for k, v in eng.model.state_dict().items():
+        assert torch.equal(v, weights[k]) and torch.equal(v, eng2.model.state_dict()[k])
 
 
 def test_cli_serve_from_checkpoint(tmp_path, monkeypatch, capsys):
@@ -153,8 +173,7 @@ def test_cli_serve_from_checkpoint(tmp_path, monkeypatch, capsys):
 
     config = default_config(OVERRIDES)
     engine = tstream.StreamingOdometry(config, device="cpu")
-    ckpt = str(tmp_path / "ckpt.pt")
-    tstream.save_checkpoint(ckpt, config, engine.model)
+    ckpt = write_checkpoint(tmp_path, config, engine.model)
     paths = []
     for i, scan in enumerate(make_scans(2, seed=5)):
         paths.append(str(tmp_path / f"s{i}.npy"))
@@ -182,8 +201,8 @@ def test_cli_fov_override_over_checkpoint(tmp_path, fov):
     from delora_tpu_torch import cli
 
     config = default_config(OVERRIDES)
-    ckpt = str(tmp_path / "ckpt.pt")
-    tstream.save_checkpoint(ckpt, config, tstream.StreamingOdometry(config, device="cpu").model)
+    ckpt = write_checkpoint(tmp_path, config,
+                            tstream.StreamingOdometry(config, device="cpu").model)
     served = cli.serve_config(ckpt, cli._parse_overrides(
         [f"{key}={json.dumps(value)}" for key, value in fov.items()]))
     merged = {**OVERRIDES, **fov, "kitti": {**OVERRIDES["kitti"], **fov.get("kitti", {})}}

@@ -56,14 +56,14 @@ def test_pairs_stay_inside_sequences_and_epochs_follow_the_loader():
     trainer = Trainer(config, tiny_world([5, 3, 4]), device="cpu")
     assert not trainer.supervised
     # Scans 0-4, 5-7, 8-11: no pair (4, 5) or (7, 8).
-    assert trainer.pair_target.tolist() == [0, 1, 2, 3, 5, 6, 8, 9, 10]
-    assert trainer.pair_source.tolist() == [1, 2, 3, 4, 6, 7, 9, 10, 11]
+    assert trainer.feeds["kitti"].pair_target.tolist() == [0, 1, 2, 3, 5, 6, 8, 9, 10]
+    assert trainer.feeds["kitti"].pair_source.tolist() == [1, 2, 3, 4, 6, 7, 9, 10, 11]
     for epoch in (0, 3):
         expected = np.random.default_rng(epoch).permutation(9)[:8]
         np.testing.assert_array_equal(trainer.epoch_indices(epoch), expected)
-    assert trainer.tables.image.shape == (12, 8, 32, 4)
-    assert trainer.tables.src_points.shape == (12, 8 * 32, 3)
-    assert trainer.tables.mean_range.dtype == torch.float32
+    assert trainer.feeds["kitti"].tables.image.shape == (12, 8, 32, 4)
+    assert trainer.feeds["kitti"].tables.src_points.shape == (12, 8 * 32, 3)
+    assert trainer.feeds["kitti"].tables.mean_range.dtype == torch.float32
 
 
 def test_trainer_needs_a_whole_batch():
@@ -82,8 +82,8 @@ def test_raw_feed_trains_brute_correspondence():
     config = default_config({**SMALL, "correspondence": "brute", "batch_size": 2,
                              "unsupervised_at_start": True})
     trainer = Trainer(config, tiny_world([4, 3]), device="cpu")
-    assert trainer.feed == "raw" and len(trainer.tables) == 3
-    points, normals, valid = trainer.tables
+    assert trainer.feed == "raw" and len(trainer.feeds["kitti"].tables) == 3
+    points, normals, valid = trainer.feeds["kitti"].tables
     assert points.shape == (7, 1024, 3) and valid.dtype == torch.bool
     assert valid.sum(1).tolist() == [600] * 7
     history = trainer.train(2)
@@ -98,8 +98,8 @@ def test_raw_feed_truncates_to_max_points():
     config = default_config({**SMALL, "cache_target_projections": False,
                              "kitti": {"max_points": 500}})
     trainer = Trainer(config, tiny_world([2]), device="cpu")
-    assert trainer.feed == "raw" and trainer.tables[0].shape == (2, 500, 3)
-    assert trainer.tables[2].all()
+    assert trainer.feed == "raw" and trainer.feeds["kitti"].tables[0].shape == (2, 500, 3)
+    assert trainer.feeds["kitti"].tables[2].all()
 
 
 def test_quality_recipe_trains_and_deploys_the_ema():
