@@ -86,9 +86,27 @@ exits non-zero without printing a result:
    of ``best`` (24 finite, rigid poses; finite RPE; no kernel launch, the
    cached path projects on the host); and the tester's loss evaluation on
    the raw feed (two exact placements, one packed and one matcher launch a
-   batch).
+   batch);
+10. the paths of the reference's other training keys, each at full width,
+   B = 8, 3 unsupervised epochs of 2 steps on the drive: ``augment_full``
+   (``random_point_cloud_rotations``, fully-cached feed: the rotated
+   survivors projected again; exact, packed and matcher once a step),
+   ``augment_cached`` (the same on the cached-target feed,
+   ``cache_source_projections: false``; the same launches), ``projective``
+   (projective correspondence on the cached-target feed with augmentation:
+   one exact placement a step and no other kernel), ``raw_64x1024`` (the raw
+   feed at 64x1024 = 65,536 pixels: three exact placements and one matcher a
+   step) and ``remat`` (the main path with ``remat`` and ``fused_adam``:
+   packed and matcher once a step); every step finite with no overflowing
+   tile; every augmented step's rotations within +-2 degrees, none the
+   identity; pairs/s and the device split; one fp32 step against the CPU on
+   the same batch, params and rotations for ``augment_cached``,
+   ``projective`` and ``raw_64x1024`` (at B = 2: the CPU's plain step would
+   project 8 x 3 full clouds); for ``remat``, its fp32 loss and gradients
+   against no remat on the card and the peak memory of a bf16 step with and
+   without it.
 
-Each path of phases 5-9 is driven with every kernel's launch count set to 0
+Each path of phases 5-10 is driven with every kernel's launch count set to 0
 just before it and read just after; the placement wrapper counts its exact
 and its packed rule apart. A path fails unless each of its kernels launched
 as often as the path should launch it and every other kernel not at all.
@@ -1540,14 +1558,17 @@ def run_training(trainer, card, label, epochs, per_step, positive=()):
 
 
 def model_images(trainer, batch):
-    """The model's two input images of a batch (projected on the raw feed)."""
+    """The model's two input images of a batch (the raw source projected on
+    the cached-target and raw feeds, the raw target on the raw feed)."""
     from delora_tpu_torch.ops.projection import project_compact_exact_batch, project_scan_batch
 
     if trainer.feed == "full":
         return batch.image_1, batch.image_2
     spec = trainer.feeds["kitti"].spec
-    return (project_scan_batch(batch.points_1, batch.valid_1, spec).image,
-            project_compact_exact_batch(batch.points_2, batch.valid_2, spec).image)
+    image_2 = project_compact_exact_batch(batch.points_2, batch.valid_2, spec).image
+    if trainer.feed == "cached":
+        return batch.image_1, image_2
+    return project_scan_batch(batch.points_1, batch.valid_1, spec).image, image_2
 
 
 def step_split(trainer, card, label):
@@ -1584,13 +1605,15 @@ def step_split(trainer, card, label):
     return split, total, wall_ms
 
 
-def check_fp32_step(trainer, label, overrides=None):
+def check_fp32_step(trainer, label, overrides=None, batch_size=None):
     """One fp32 step (TF32 off) on the card against the CPU's plain path,
-    on the trainer's first batch and fresh seeded params."""
+    on the trainer's first batch (its first ``batch_size`` pairs if given)
+    and fresh seeded params; with augmentation both steps take the same
+    rotations, drawn once from a seeded CPU generator."""
     from delora_tpu_torch.config import default_config
     from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
     from delora_tpu_torch.training.state import make_optimizer
-    from delora_tpu_torch.training.step import StepConfig, train_step
+    from delora_tpu_torch.training.step import StepConfig, augment_rotations, train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1601,12 +1624,19 @@ def check_fp32_step(trainer, label, overrides=None):
                           torch.Generator().manual_seed(SEED + 1)).to(trainer.device)
     model_cpu = copy.deepcopy(model).cpu()
     batch = first_batch(trainer)
+    batch = type(batch)(*(t[:batch_size] for t in batch))
+    batch_size = batch[0].shape[0]
     batch_cpu = type(batch)(*(t.cpu() for t in batch))
-    out = train_step(model, make_optimizer(cfg32, model.parameters(), trainer.batch_size)[0],
-                     batch, step_cfg)
+    rotations = None
+    if step_cfg.augment:
+        rotations = augment_rotations(step_cfg, batch_size,
+                                      torch.Generator().manual_seed(SEED + 7))
+    out = train_step(model, make_optimizer(cfg32, model.parameters(), batch_size)[0],
+                     batch, step_cfg,
+                     rotations=None if rotations is None else rotations.to(trainer.device))
     t0 = time.perf_counter()
-    ref = train_step(model_cpu, make_optimizer(cfg32, model_cpu.parameters(),
-                                               trainer.batch_size)[0], batch_cpu, step_cfg)
+    ref = train_step(model_cpu, make_optimizer(cfg32, model_cpu.parameters(), batch_size)[0],
+                     batch_cpu, step_cfg, rotations=rotations)
     cpu_s = time.perf_counter() - t0
     worst = 0.0
     for key, value in ref.items():
@@ -1616,13 +1646,24 @@ def check_fp32_step(trainer, label, overrides=None):
         if rel > FP32_RTOL:
             raise RuntimeError(f"{label} fp32 step: {key} card {a} vs CPU {b} (rel {rel:.2e} > "
                                f"{FP32_RTOL})")
-    say(f"{label} fp32 (TF32 off) card vs CPU step on the same batch (B={trainer.batch_size}) "
+    same = ", the same rotations" if rotations is not None else ""
+    say(f"{label} fp32 (TF32 off) card vs CPU step on the same batch (B={batch_size}{same}) "
         f"and params: loss {float(out['loss']):.6f} vs {float(ref['loss']):.6f}, grad_norm "
         f"{float(out['grad_norm']):.6f} vs {float(ref['grad_norm']):.6f}, pairs "
         f"{float(out['num_po2pl_pairs']):.1f} vs {float(ref['num_po2pl_pairs']):.1f}, rev "
         f"{float(out['loss_po2pl_rev']):.6f} vs {float(ref['loss_po2pl_rev']):.6f}; worst "
         f"relative difference over {len(ref)} values {worst:.2e} (limit {FP32_RTOL}); CPU step "
         f"{cpu_s:.1f} s")
+
+
+def start_at_identity(model) -> None:
+    """Set the model where the supervised warmup leaves it: the heads' last
+    layers output translation 0 and quaternion (0, 0, 0, 1)."""
+    with torch.no_grad():
+        for head, bias in ((model.fully_connected_rotation, (0.0, 0.0, 0.0, 1.0)),
+                           (model.fully_connected_translation, (0.0, 0.0, 0.0))):
+            head[-1].weight.zero_()
+            head[-1].bias.copy_(torch.tensor(bias))
 
 
 def check_loss_falls(trainer):
@@ -1634,15 +1675,9 @@ def check_loss_falls(trainer):
     config = dict(trainer.config, learning_rate=LOSS_LR, lr_schedule="constant")
     model = OdometryModel(ModelConfig.from_config(config),
                           torch.Generator().manual_seed(SEED + 2))
-    # Start at the identity, where the supervised warmup leaves the model: the
-    # heads' last layers output translation 0 and quaternion (0, 0, 0, 1).
     # From a random pose the hard-matched loss jumps between basins under
     # any step that moves all 11.9 M parameters.
-    with torch.no_grad():
-        for head, bias in ((model.fully_connected_rotation, (0.0, 0.0, 0.0, 1.0)),
-                           (model.fully_connected_translation, (0.0, 0.0, 0.0))):
-            head[-1].weight.zero_()
-            head[-1].bias.copy_(torch.tensor(bias))
+    start_at_identity(model)
     model.to(trainer.device)
     optimizer, _ = make_optimizer(config, model.parameters(), TRAIN_B)
     cfg = StepConfig.from_config(config, supervised=False)
@@ -1925,6 +1960,193 @@ def run_disk_phase(scans, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 10: the paths of augmentation, the cached-target feed, projective
+# correspondence, the raw feed at 64x1024 and remat + fused_adam. Each path's
+# settings over the default config and batch size, its launches a step, and
+# whether its fp32 card step is checked against the CPU (the batch size of
+# that check; 64x1024 at B=2: its CPU step projects three full clouds).
+NEW_PATHS = (
+    ("augment_full", {"random_point_cloud_rotations": True},
+     {"placement": 1, "placement_packed": 1, "window_match": 1}, None),
+    ("augment_cached", {"random_point_cloud_rotations": True,
+                        "cache_source_projections": False},
+     {"placement": 1, "placement_packed": 1, "window_match": 1}, TRAIN_B),
+    ("projective", {"random_point_cloud_rotations": True, "cache_source_projections": False,
+                    "correspondence": "projective"}, {"placement": 1}, TRAIN_B),
+    ("raw_64x1024", {"cache_target_projections": False, "kitti": {"horizontal_cells": 1024}},
+     {"placement": 3, "window_match": 1}, 2),
+    ("remat", {"remat": True, "fused_adam": True},
+     {"placement_packed": 1, "window_match": 1}, None),
+)
+NEW_PATH_EPOCHS = 3
+# remat against no remat on the card, set before the first run: the
+# recomputed forward issues the same convolutions on the same inputs, so the
+# gradients should be bit-equal; a difference beyond this share of a
+# tensor's largest gradient fails.
+REMAT_RTOL = 1e-5
+# Augmentation's draw: +-magnitude/2 with the default 4 degrees.
+MAX_AUGMENT_DEG = 2.0
+
+
+def record_rotations(trainer, drawn):
+    """Wrap ``trainer.step`` so that each step's rotations land in ``drawn``:
+    the draw is replayed from the augmentation generator's state before the
+    step, and the generator must stand where the replay left it (the step
+    drew once, with ``augment_rotations``)."""
+    from delora_tpu_torch.training.step import augment_rotations
+
+    step = trainer.step
+
+    def wrapped(batch, cfg):
+        state = trainer.augment_generator.get_state()
+        out = step(batch, cfg)
+        replay = torch.Generator(trainer.device)
+        replay.set_state(state)
+        drawn.append(augment_rotations(cfg, batch[0].shape[0], replay))
+        if not torch.equal(replay.get_state(), trainer.augment_generator.get_state()):
+            raise RuntimeError("the step drew its rotations some other way")
+        return out
+
+    trainer.step = wrapped
+
+
+def check_rotations(label, drawn, steps):
+    """Every step's rotations: within +-MAX_AUGMENT_DEG, none the identity,
+    no two steps alike."""
+    if len(drawn) != steps:
+        raise RuntimeError(f"{label}: {len(drawn)} draws for {steps} steps")
+    R = torch.stack(drawn).double().cpu()
+    cos = ((R.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0).clamp(-1.0, 1.0)
+    deg = torch.rad2deg(torch.arccos(cos))
+    eye = torch.eye(3, dtype=R.dtype)
+    if (deg > MAX_AUGMENT_DEG + 1e-3).any() or (R == eye).all(-1).all(-1).any():
+        raise RuntimeError(f"{label}: rotations out of range or the identity: {deg.tolist()}")
+    if any(torch.equal(R[i], R[i + 1]) for i in range(len(R) - 1)):
+        raise RuntimeError(f"{label}: two steps drew the same rotations")
+    return float(deg.min()), float(deg.max())
+
+
+def run_new_path(trainer, card, label, per_step):
+    """NEW_PATH_EPOCHS unsupervised epochs as the path ``label``, from the
+    identity pose (where the warmup would leave the model), every step with
+    correspondences; its launch counts as :func:`run_training` checks them.
+    -> (steps, pairs/s of the epochs after the first)."""
+    start_at_identity(trainer.model)
+    reset_launches()
+    trainer.supervised = False
+    steps, history = 0, []
+    for epoch in range(NEW_PATH_EPOCHS):
+        metrics = trainer.train_epoch(epoch)
+        check_steps(trainer, epoch, positive=("loss_pc", "num_po2pl_pairs", "grad_norm"))
+        steps += metrics["steps"]
+        history.append(metrics)
+        say(f"{label} epoch {epoch}: {metrics['steps']} steps, loss {metrics['loss']:.6f}, "
+            f"po2pl {metrics['loss_po2pl']:.6f}, pl2pl {metrics['loss_pl2pl']:.6f}, pairs "
+            f"{metrics['num_po2pl_pairs']:.1f}, grad_norm {metrics['grad_norm']:.4e}, "
+            f"{metrics['epoch_seconds'] * 1e3:.1f} ms")
+    launches = path_launches(label, {name: k * steps for name, k in per_step.items()})
+    later = history[1:]
+    pairs_per_s = (sum(h["steps"] for h in later) * trainer.batch_size
+                   / sum(h["epoch_seconds"] for h in later))
+    say(f"{label} B={trainer.batch_size}, feed {trainer.feed}: {steps} steps, every step's "
+        f"metrics finite, overflow tiles 0, launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" for {steps} steps | epochs "
+        f"1-{NEW_PATH_EPOCHS - 1} (host clock, one readback an epoch) {pairs_per_s:.1f} pairs/s "
+        f"on {card}")
+    return steps, pairs_per_s
+
+
+def check_remat(trainer, card):
+    """remat against no remat on the card: the fp32 loss and gradients of one
+    step on the same batch and params (TF32 off), and the peak memory of one
+    bf16 train step of each."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
+    from delora_tpu_torch.training.state import make_optimizer
+    from delora_tpu_torch.training.step import StepConfig, loss_and_metrics_fullcached, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = first_batch(trainer)
+    grads, losses = [], []
+    for remat in (False, True):
+        cfg32 = default_config({"compute_dtype": "float32", "remat": remat},
+                               base=trainer.config)
+        model = OdometryModel(ModelConfig.from_config(cfg32),
+                              torch.Generator().manual_seed(SEED + 8))
+        start_at_identity(model)
+        model.to(trainer.device)
+        loss, _ = loss_and_metrics_fullcached(model, batch,
+                                              StepConfig.from_config(cfg32, supervised=False))
+        loss.backward()
+        losses.append(loss.detach())
+        grads.append([p.grad for p in model.parameters()])
+    equal = torch.equal(losses[0], losses[1]) and all(
+        torch.equal(a, b) for a, b in zip(*grads))
+    worst = max(((a - b).abs().max() / a.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(*grads))
+    if not losses[0] > 0 or not torch.equal(losses[0], losses[1]) or worst > REMAT_RTOL:
+        raise RuntimeError(f"remat: loss {losses[1].item()} vs {losses[0].item()}, gradients "
+                           f"differ by {worst:.3e} of their largest (limit {REMAT_RTOL})")
+    say(f"remat fp32 (TF32 off) on the card against no remat, same batch and params: loss "
+        f"{losses[1].item():.6f} vs {losses[0].item():.6f}, gradients "
+        f"{'bit-equal' if equal else f'largest difference {worst:.3e} of a tensor max'} "
+        f"on {card}")
+
+    peaks = {}
+    for remat in (False, True):
+        config = default_config({"remat": remat}, base=trainer.config)
+        model = OdometryModel(ModelConfig.from_config(config),
+                              torch.Generator().manual_seed(SEED + 8)).to(trainer.device)
+        optimizer, _ = make_optimizer(config, model.parameters(), TRAIN_B)
+        cfg = StepConfig.from_config(config, supervised=False)
+        train_step(model, optimizer, batch, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        train_step(model, optimizer, batch, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks[remat] = (peak / 2**20, (peak - before) / 2**20)
+        del model, optimizer
+    say(f"remat peak memory of one bf16 train step (B={TRAIN_B}, "
+        f"torch.cuda.max_memory_allocated; the trainer's tables and models included): "
+        f"{peaks[True][0]:.1f} MiB with remat ({peaks[True][1]:.1f} MiB above the step's "
+        f"start), {peaks[False][0]:.1f} MiB without ({peaks[False][1]:.1f} MiB) on {card}")
+
+
+def run_new_paths(drive_scans, card) -> None:
+    """Phase 10: each of NEW_PATHS at full width, B=8, on the drive."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.training.trainer import Trainer
+
+    for i, (label, overrides, per_step, check_b) in enumerate(NEW_PATHS):
+        t0 = time.perf_counter()
+        trainer = Trainer(default_config({"batch_size": TRAIN_B, **overrides}), drive_scans,
+                          device="cuda", generator=torch.Generator().manual_seed(SEED + 10 + i))
+        spec = trainer.feeds["kitti"].spec
+        say(f"{label}: {overrides}, feed {trainer.feed}, {spec.height}x{spec.width}, "
+            f"B={TRAIN_B}, bf16, set-up {time.perf_counter() - t0:.1f} s")
+        drawn = []
+        if trainer.augment_generator is not None:
+            record_rotations(trainer, drawn)
+        steps, _ = run_new_path(trainer, card, label, per_step)
+        if trainer.augment_generator is not None:
+            low, high = check_rotations(label, drawn, steps)
+            say(f"{label}: {steps} steps' rotations within {low:.4f}-{high:.4f} degrees (limit "
+                f"{MAX_AUGMENT_DEG}), none the identity, each step its own")
+        step_split(trainer, card, label)
+        if check_b is not None:
+            if check_b < TRAIN_B:
+                say(f"{label} fp32 check at B={check_b}: the CPU's plain step at B={TRAIN_B} "
+                    f"would project {TRAIN_B} x 3 padded clouds")
+            check_fp32_step(trainer, label, batch_size=check_b)
+        if label == "remat":
+            check_remat(trainer, card)
+        del trainer
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
@@ -2012,6 +2234,10 @@ def main() -> None:
 
     # Phase 9: the offline pipeline from disk through the command line.
     run_disk_phase(scans, card)
+
+    # Phase 10: augmentation, the cached-target feed, projective
+    # correspondence, the raw feed at 64x1024, remat and fused_adam.
+    run_new_paths(drive_scans, card)
 
     def row(name_, source, replaces, err, t):
         by_path = {path: counts[name_] for path, counts in PATH_LAUNCHES.items()

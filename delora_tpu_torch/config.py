@@ -15,10 +15,12 @@ are read with the reference's defaults where they are used. Each dataset's
 in the reference's ``load_config``.
 
 Settings whose code is not ported yet raise in validation rather than run
-silently: augmentation, projective correspondence, ``fused_adam``, the
-cached-target feed (target cached, source raw), rosbag datasets, the native
-C++ batcher (``native_io: true``) and ``profile_epochs``. Soft matching,
-reverse po2pl, the parameter EMA, dropout and brute correspondence run.
+silently: rosbag datasets, the native C++ batcher (``native_io: true``) and
+``profile_epochs``. Soft matching, reverse po2pl, the parameter EMA,
+dropout, augmentation, the image, projective and brute matchers, the three
+feeds, ``remat`` and ``fused_adam`` run. ``remat`` and ``fused_adam`` are
+not in the reference's YAML (``remat`` is commented out there) and are read
+with ``False`` as their default.
 
 ``use_pallas_nn`` is carried for parity and read by nothing: the reference
 picks between two routes to the same exact 1-NN with it (its Pallas kernel or
@@ -82,6 +84,8 @@ _DEFAULTS: Dict[str, Any] = {
     "epochs": 10000,
     "use_dropout": False,
     "random_point_cloud_rotations": False,
+    "random_rotations_only_yaw": False,
+    "magnitude_random_rot": 4.0,                      # degrees
     # hyperparameters.yaml: losses and correspondence
     "lambda_po2pl": 1.0,
     "normal_loss": "squared",
@@ -173,13 +177,7 @@ def default_config(
     return config
 
 
-# Settings whose code the port does not have yet: (key, value that is
-# ported, what the other values would turn on).
-_NOT_PORTED = (
-    ("random_point_cloud_rotations", False, "augmentation"),
-    ("fused_adam", False, "the flattened Adam update"),
-)
-_CORRESPONDENCE = ("image", "brute")
+_CORRESPONDENCE = ("image", "projective", "brute")
 
 
 def training_feed(config: Mapping[str, Any]) -> str:
@@ -188,7 +186,7 @@ def training_feed(config: Mapping[str, Any]) -> str:
     when the target caches are on and the matcher works in image space,
     "raw" (padded clouds, projected in the step) when the correspondence is
     brute or the target cache is off, else "cached" (target cached, source
-    raw), which is not ported."""
+    raw)."""
     if not config["cache_target_projections"] or config["correspondence"] == "brute":
         return "raw"
     return "full" if config["cache_source_projections"] else "cached"
@@ -202,14 +200,8 @@ def validate(config: Mapping[str, Any]) -> None:
     if config["normal_loss"] not in ("squared", "linear"):
         raise ValueError('normal_loss must be "squared" or "linear"')
     if config["correspondence"] not in _CORRESPONDENCE:
-        raise NotImplementedError(
-            f"correspondence {config['correspondence']!r} is not ported; the port "
-            f"has {' and '.join(_CORRESPONDENCE)}")
-    for key, ported, what in _NOT_PORTED:
-        if config.get(key, ported) != ported:
-            raise NotImplementedError(
-                f"{key}={config[key]!r} turns on {what}, which is not ported yet "
-                f"(the port runs {key}={ported!r})")
+        raise ValueError(f"correspondence must be one of {_CORRESPONDENCE}, got "
+                         f"{config['correspondence']!r}")
     for dataset in config["datasets"]:
         kind = config.get(dataset, {}).get("dataset_type", "kitti")
         if kind != "kitti":
@@ -222,11 +214,6 @@ def validate(config: Mapping[str, Any]) -> None:
             f"ported; the port's loader is the Python producer thread (native_io: auto)")
     if config.get("profile_epochs"):
         raise NotImplementedError("profile_epochs is not ported")
-    if training_feed(config) == "cached":
-        raise NotImplementedError(
-            "the cached-target feed (cache_target_projections: true, "
-            "cache_source_projections: false) is not ported; the port has the fully "
-            "cached and the raw feeds")
     if config["soft_match_sigma"] < 0.0 or config["lambda_reverse_po2pl"] < 0.0:
         raise ValueError("soft_match_sigma and lambda_reverse_po2pl must be >= 0")
     if not 0.0 <= config["ema_decay"] < 1.0:

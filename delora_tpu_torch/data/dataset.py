@@ -11,17 +11,16 @@ Python producer of its ``BatchLoader``:
 - with ``store_dataset_in_RAM`` the scans are held ragged (their own point
   counts) and padded to ``max_points`` only when a batch is made; every scan
   is truncated to ``max_points`` when it is loaded;
-- the fully-cached feed's per-scan projection artifacts come from
-  ``ops/projection_host.py::scan_artifacts_np``, once a scan, computed up
-  front by a thread pool (``prewarm_artifacts``);
+- the fully-cached and the cached-target feeds' per-scan projection
+  artifacts come from ``ops/projection_host.py::scan_artifacts_np``, once a
+  scan, computed up front by a thread pool (``prewarm_artifacts``);
 - an epoch's pair order is ``np.random.default_rng(seed + epoch)``'s
   permutation, truncated to whole batches; a producer thread makes the
   batches ``prefetch`` ahead, and they reach the device from pinned memory
   with ``non_blocking`` copies.
 
 One process reads the whole dataset: the reference's per-host sharding of
-the permutation, its native C++ batcher and the cached-target batch (target
-artifacts, raw source) are not ported.
+the permutation and its native C++ batcher are not ported.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ import torch
 
 from delora_tpu_torch.ops.projection import ProjectionSpec
 from delora_tpu_torch.ops.projection_host import ScanArtifacts, scan_artifacts_np
-from delora_tpu_torch.training.step import FullyCachedBatch, ScanPairBatch
+from delora_tpu_torch.training.step import CachedTargetBatch, FullyCachedBatch, ScanPairBatch
 
 
 def epoch_permutation(num_pairs: int, batch_size: int, seed: int, epoch: int) -> np.ndarray:
@@ -147,6 +146,19 @@ class ScanPairDataset:
                 pass
         return len(todo)
 
+    def make_cached_batch(self, indices) -> CachedTargetBatch:
+        """The cached-target feed's batch of the pairs ``indices``, as numpy
+        arrays: scan k's target artifacts and scan k + 1 padded."""
+        rows = []
+        for i in indices:
+            si, k = self.pairs[int(i)]
+            tgt = self.scan_artifacts(si, k)
+            rows.append((tgt.image, tgt.normal_image, tgt.mean_range, *self.get_scan(si, k + 1)))
+        image, normal_image, mean_range, points, normals, valid = zip(*rows)
+        return CachedTargetBatch(np.stack(image), np.stack(normal_image),
+                                 np.asarray(mean_range, np.float32), np.stack(points),
+                                 np.stack(normals), np.stack(valid))
+
     def make_fullcached_batch(self, indices) -> FullyCachedBatch:
         """The fully-cached feed's batch of the pairs ``indices``, as numpy
         arrays: scan k is the target, scan k + 1 the source."""
@@ -166,7 +178,7 @@ class ScanPairDataset:
             mean_range_2=np.asarray([a.mean_range for a in src], np.float32))
 
 
-Batch = Union[ScanPairBatch, FullyCachedBatch]
+Batch = Union[ScanPairBatch, CachedTargetBatch, FullyCachedBatch]
 
 
 def batch_to_device(batch: Batch, device: torch.device) -> Batch:
@@ -176,12 +188,13 @@ def batch_to_device(batch: Batch, device: torch.device) -> Batch:
 
 class BatchLoader:
     """Shuffled, epoch-based whole batches of a :class:`ScanPairDataset` with a
-    background producer: ``feed`` "raw" gives :class:`ScanPairBatch`, "full"
-    gives :class:`FullyCachedBatch`, on ``device``."""
+    background producer: ``feed`` "raw" gives :class:`ScanPairBatch`,
+    "cached" :class:`CachedTargetBatch` and "full" :class:`FullyCachedBatch`,
+    on ``device``."""
 
     def __init__(self, dataset: ScanPairDataset, batch_size: int, *, device: torch.device,
                  seed: int = 0, prefetch: int = 2, feed: str = "raw"):
-        if feed not in ("raw", "full"):
+        if feed not in ("raw", "cached", "full"):
             raise ValueError(f"unknown feed mode {feed!r}")
         self.dataset = dataset
         self.batch_size = batch_size
@@ -200,8 +213,8 @@ class BatchLoader:
         error in the producer is raised to the caller."""
         indices = self.global_epoch_indices(epoch)
         n_batches = len(indices) // self.batch_size
-        make = (self.dataset.make_batch if self.feed == "raw"
-                else self.dataset.make_fullcached_batch)
+        make = getattr(self.dataset, {"raw": "make_batch", "cached": "make_cached_batch",
+                                      "full": "make_fullcached_batch"}[self.feed])
         pin = self.device.type == "cuda"
         q: "queue.Queue" = queue.Queue(maxsize=max(1, self.prefetch))
         stop = threading.Event()

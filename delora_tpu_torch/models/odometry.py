@@ -9,7 +9,8 @@ normalized per row or over the whole tensor.
 
 ``compute_dtype`` bfloat16 runs the network under ``torch.autocast``;
 parameters stay float32 and the outputs come out float32. ``use_dropout``
-turns on the backbone's dropout in training mode (``models/resnet.py``).
+turns on the backbone's dropout in training mode and ``remat`` recomputes
+the backbone's blocks in the backward pass (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ class ModelConfig(NamedTuple):
     in_channels_per_image: int = 4
     stage_width_multipliers: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
     use_dropout: bool = False
+    remat: bool = False          # recompute each ResNet block in the backward pass
 
     @classmethod
     def from_config(cls, config):
@@ -58,6 +60,7 @@ class ModelConfig(NamedTuple):
                 float(m) for m in config.get(
                     "resnet_stage_width_multipliers", (1.0, 1.0, 1.0, 1.0))),
             use_dropout=bool(config.get("use_dropout", False)),
+            remat=bool(config.get("remat", False)),
         )
 
 
@@ -90,7 +93,7 @@ class OdometryModel(nn.Module):
         self.resnet = CircularResNet(
             in_channels, cfg.resnet_outputs, cfg.blocks_per_stage,
             cfg.channel_divisor, cfg.stage_width_multipliers, cfg.activation,
-            cfg.use_dropout)
+            cfg.use_dropout, cfg.remat)
         if cfg.use_single_mlp:
             self.fully_connected_rot_trans = _mlp(
                 cfg.resnet_outputs, (512, 512, 256, 64, 7), cfg.activation)

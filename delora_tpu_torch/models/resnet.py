@@ -13,6 +13,12 @@ fc output. It runs only in training mode (``model.train()``) and where the
 forward's ``deterministic`` (the reference's flag) is false; ``model.eval()``
 turns it off as ``deterministic=True`` does. It draws its bits from the
 ``torch.Generator`` the caller passes, never from the global RNG.
+
+``remat`` recomputes each ``BasicBlock``'s interior in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations, as the reference's ``nn.remat`` does; the blocks keep their
+names, so the state_dict is the same either way. No dropout site lies inside
+a block, so a recomputation never draws from the caller's generator.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def activation_fn(name: str):
@@ -120,10 +127,11 @@ class CircularResNet(nn.Module):
                  blocks_per_stage: Sequence[int] = (2, 2, 2, 2),
                  channel_divisor: int = 1,
                  stage_width_multipliers: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
-                 activation: str = "tanh", use_dropout: bool = False):
+                 activation: str = "tanh", use_dropout: bool = False, remat: bool = False):
         super().__init__()
         self.act = activation_fn(activation)
         self.use_dropout = use_dropout
+        self.remat = remat
         widths = [int(c * m / channel_divisor)
                   for c, m in zip((64, 128, 256, 512), stage_width_multipliers)]
         self.conv1 = ConvCirc(in_channels, widths[0], stride=(1, 2))
@@ -152,9 +160,13 @@ class CircularResNet(nn.Module):
         x = self.act(self.conv1(x))
         # 3x3 max-pool, stride (1, 2): rows padded with -inf, azimuth wrapped.
         x = F.max_pool2d(pad_circular_w(x, 1, 1, -math.inf), 3, stride=(1, 2))
-        x = self.layer3(self.layer2(self.layer1(x)))
+        x = self._stage(self.layer3, self._stage(self.layer2, self._stage(self.layer1, x)))
         if drop:
             x = dropout(x, DROPOUT_RATE, generator, channels=True)
-        out = self.fc(self.layer4(x).mean(dim=(2, 3)))
+        out = self.fc(self._stage(self.layer4, x).mean(dim=(2, 3)))
         return dropout(out, DROPOUT_RATE, generator) if drop else out
 
+    def _stage(self, layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        for block in layer:
+            x = checkpoint(block, x, use_reentrant=False) if self.remat else block(x)
+        return x

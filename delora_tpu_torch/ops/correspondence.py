@@ -3,8 +3,8 @@
 
 The port of ``delora_tpu/ops/correspondence.py``'s ``Correspondence``,
 ``image_space_correspondence_core`` and ``image_space_correspondence_batch``
-(hard and soft matching), ``window_match_indices`` and
-``brute_force_correspondence``.
+(hard and soft matching), ``window_match_indices``,
+``projective_correspondence`` and ``brute_force_correspondence``.
 
 Image space: the warped source is already a range image, so each source pixel
 is matched against a window of the target image (``ops/cuda/window_match.py``:
@@ -12,6 +12,13 @@ the CUDA kernels on the card, their plain versions on the CPU). Hard matching
 takes the nearest candidate; soft matching (``soft_sigma > 0``) blends the
 window's candidates with weights exp(-sq / sigma^2), unnormalised, and a window
 whose weights all underflow (sum < 1e-30) is a miss.
+
+Projective: each warped source point is projected into the target image and
+matched against the (wv, wu) window of target pixels around its pixel,
+azimuth wrapping and elevation clamped. Candidates are ranked on their xyz
+rounded to bfloat16, as the reference ranks them; the winner's exact float32
+point and normal are gathered afterwards. PyTorch ops, no kernel: the
+reference runs it in XLA.
 
 Brute force: the exact 1-NN of every source point among the valid target
 points (``ops/cuda/nn_search.py``).
@@ -35,7 +42,8 @@ from delora_tpu_torch.ops.cuda.window_match import (
     window_match_indices as _match_indices,
     window_match_soft,
 )
-from delora_tpu_torch.ops.projection import ProjectionSpec
+from delora_tpu_torch.ops.exact import squared_distance
+from delora_tpu_torch.ops.projection import ProjectionSpec, compute_uv
 
 
 class Correspondence(NamedTuple):
@@ -126,6 +134,53 @@ def window_match_indices(
                                      tuple(window))
     best_sq = best_sq.reshape(B, H * W)
     return best_k.reshape(B, H * W), best_sq, src_occ & torch.isfinite(best_sq)
+
+
+def projective_correspondence(
+    source_points: torch.Tensor,         # [B, S, 3] warped source points
+    source_valid: torch.Tensor,          # [B, S] bool
+    target_image: torch.Tensor,          # [B, H, W, >=3] projected target
+    target_normal_image: torch.Tensor,   # [B, H, W, 3]
+    spec: ProjectionSpec,
+    window: Tuple[int, int] = (5, 9),
+) -> Correspondence:
+    """Projective data association (see the module docstring). A point's
+    pixel is its rounded (u, v) clamped into the image; the K = wv * wu
+    candidates are ranked by fma-formed squared distance to their bfloat16
+    xyz (float32 arithmetic), empty pixels at +inf, the first offset on ties
+    and offset 0 when all are empty. ``valid`` = the winning pixel is
+    occupied and the source point valid."""
+    B, S, _ = source_points.shape
+    H, W = spec.height, spec.width
+    wv, wu = window
+    a, b = wv // 2, wu // 2
+    src = source_points.detach()
+    u, v = compute_uv(src, spec)
+    ui = torch.round(u).to(torch.int64).clamp(0, W - 1)
+    vi = torch.round(v).to(torch.int64).clamp(0, H - 1)
+
+    xyz = target_image.detach()[..., 0:3]
+    occ = (xyz != 0.0).any(-1, keepdim=True).to(xyz.dtype)
+    # Four bfloat16 channels (xyz, occupancy) are one 8-byte word a pixel:
+    # each candidate is one int64 gather.
+    table = torch.cat([xyz, occ], dim=-1).to(torch.bfloat16).contiguous()
+    table = table.view(torch.int64).reshape(B, H * W)
+    dv = torch.arange(-a, a + 1, device=src.device).repeat_interleave(wu)
+    du = torch.arange(-b, b + 1, device=src.device).repeat(wv)
+    rows = (vi[..., None] + dv).clamp(0, H - 1)
+    cols = torch.remainder(ui[..., None] + du, W)
+    cand_pix = (rows * W + cols).reshape(B, S * len(dv))
+    cand = torch.gather(table, 1, cand_pix).view(torch.bfloat16).reshape(B, S, len(dv), 4)
+    cand = cand.to(torch.float32)
+    sq = squared_distance(cand[..., 0:3] - src[:, :, None, :])
+    sq = torch.where(cand[..., 3] > 0.5, sq, float("inf"))
+    best_k = torch.argmin(sq, dim=-1, keepdim=True)
+
+    win_pix = torch.gather(cand_pix.reshape(B, S, -1), 2, best_k)
+    flat = torch.cat([xyz, target_normal_image.detach(), occ], dim=-1).reshape(B, H * W, 7)
+    best = torch.gather(flat, 1, win_pix.expand(-1, -1, 7))
+    valid = (best[..., 6] > 0.5) & source_valid
+    return _masked(source_points, valid, best[..., 0:3], best[..., 3:6])
 
 
 def brute_force_correspondence(

@@ -28,6 +28,24 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def axis_angle_to_rotmat(aa: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Axis-angle vectors [..., 3] (angle = |aa|) -> rotation matrices
+    [..., 3, 3] by Rodrigues' formula; an angle below ``eps`` gives the
+    identity."""
+    angle = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    axis = aa / torch.clamp(angle, min=eps)
+    x, y, z = axis.unbind(-1)
+    theta = angle[..., 0]
+    c, s = torch.cos(theta), torch.sin(theta)
+    C = 1.0 - c
+    row0 = torch.stack([c + x * x * C, x * y * C - z * s, x * z * C + y * s], dim=-1)
+    row1 = torch.stack([y * x * C + z * s, c + y * y * C, y * z * C - x * s], dim=-1)
+    row2 = torch.stack([z * x * C - y * s, z * y * C + x * s, c + z * z * C], dim=-1)
+    R = torch.stack([row0, row1, row2], dim=-2)
+    eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(R.shape)
+    return torch.where((theta < eps)[..., None, None], eye, R)
+
+
 def make_transform(translation: torch.Tensor, rotation: torch.Tensor) -> torch.Tensor:
     """Assemble [..., 4, 4] from translation [..., 3] and rotation [..., 3, 3]."""
     T = rotation.new_zeros(rotation.shape[:-2] + (4, 4))

@@ -13,7 +13,9 @@ with the updated parameters, as ``track_param_ema`` (last in the optax chain)
 sees ``params + updates``; :func:`deploy_model` is the model to evaluate or
 serve.
 
-Not ported: ``fused_adam`` (raises here; numerically the same update).
+``fused_adam`` (the reference's ``optax.flatten(adam)``) computes the same
+numbers as per-leaf Adam, so it runs the same update here: torch's foreach
+Adam, not its ``fused=True`` kernel.
 """
 
 from __future__ import annotations
@@ -54,8 +56,6 @@ def make_optimizer(config, params: Iterable[torch.nn.Parameter],
                                                     torch.optim.lr_scheduler.LambdaLR]:
     """-> (Adam, its schedule). Call ``schedule.step()`` after every
     ``optimizer.step()``."""
-    if config.get("fused_adam", False):
-        raise NotImplementedError("fused_adam is not ported: the port runs per-tensor Adam")
     optimizer = torch.optim.Adam(params, lr=effective_learning_rate(config, global_batch_size),
                                  betas=(0.9, 0.999), eps=1e-8)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lr_factor(config))

@@ -2,12 +2,13 @@
 transforms that serving shares.
 
 The port of ``delora_tpu/training/step.py``'s ``forward_pose``,
-``StepConfig``, ``ScanPairBatch``, ``FullyCachedBatch``, ``loss_and_metrics``,
-``_loss_core``, ``_loss_tail``, ``loss_and_metrics_fullcached`` (augmentation
-off) and ``optax_global_norm``, with ``train_step`` in place of the jitted
-``make_train_step`` / ``make_train_step_fullcached`` and ``infer_step`` in
-place of ``make_infer_step``. One step of the image
-matcher:
+``StepConfig``, ``ScanPairBatch``, ``CachedTargetBatch``,
+``FullyCachedBatch``, ``_augment``, ``loss_and_metrics``,
+``loss_and_metrics_cached``, ``loss_and_metrics_fullcached``, ``_loss_core``,
+``_loss_tail`` and ``optax_global_norm``, with ``train_step`` in place of the
+jitted ``make_train_step`` / ``make_train_step_cached`` /
+``make_train_step_fullcached`` and ``infer_step`` in place of
+``make_infer_step``. One step of the image matcher:
 
   1. model forward on the range images -> T [B, 4, 4] (dropout in training
      mode unless ``deterministic``);
@@ -24,12 +25,31 @@ matcher:
      with gradient;
   5. the ICP losses, the supervised identity loss, the metrics.
 
-Brute correspondence (raw feed only) warps the compacted source with
-gradient and matches it against the raw target cloud's survivors by exact
-1-NN (the 1-NN kernel). On the raw feed both scans are projected in the step
-first (``_loss_core``, ``loss_and_metrics``): the source and, for the image
-matcher, the target by ``project_compact_exact_batch``; the brute target by
-``project_scan_batch``.
+Projective correspondence warps the compacted source with gradient and
+matches each point against a window of the target image around its pixel
+(``ops/correspondence.py::projective_correspondence``, PyTorch ops). Brute
+correspondence (raw feed only) warps it the same way and matches it against
+the raw target cloud's survivors by exact 1-NN (the 1-NN kernel).
+
+The three feeds: fully cached (both scans' projection artifacts), cached
+target (the target's artifacts and the raw source) and raw (both clouds).
+Where the source is raw it is projected and compacted in the step
+(``_loss_core``) by ``project_compact_exact_batch`` at every image size: its
+winners and their pixel-ascending order are the reference's
+``project_compact_exact_batch`` below 65,536 pixels and its
+``project_scan_compact`` from there on. The raw feed's target is projected
+the same way for the image and projective matchers below 65,536 pixels, else
+(and for brute) by ``project_scan_batch``.
+
+Augmentation (``augment``) rotates the source scan by a small random
+rotation before anything else reads it: points and normals times R^T, R from
+an axis in the positive octant (or the z axis) and an angle within
++-magnitude/2 (:func:`augment_rotations`). The fully-cached feed rotates its
+compacted survivors and projects them again, so a point that lost its pixel
+before the rotation cannot win one after it: the reference's documented
+deviation (its step.py:553-580), kept. Every loss function takes the
+rotations from its caller; :func:`train_step` draws them from its
+``augment_generator`` when it is not given them.
 
 No kernel needs a backward: each sees only detached inputs, as the TPU
 kernels see only stop-gradient inputs in the reference. Parameters, losses and
@@ -39,6 +59,7 @@ model only.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -49,6 +70,7 @@ from delora_tpu_torch.losses.icp import IcpLossConfig, icp_losses
 from delora_tpu_torch.ops.correspondence import (
     brute_force_correspondence,
     image_space_correspondence_batch,
+    projective_correspondence,
     window_match_indices,
 )
 from delora_tpu_torch.ops.cuda.placement import placement
@@ -84,9 +106,12 @@ class StepConfig(NamedTuple):
 
     proj: ProjectionSpec
     icp: IcpLossConfig
-    correspondence: str = "image"             # "image" | "brute"
+    correspondence: str = "image"             # "image" | "projective" | "brute"
     window: Tuple[int, int] = (5, 9)
     supervised: bool = False                  # identity-fit warmup phase
+    augment: bool = False                     # random rotation of the source
+    augment_only_yaw: bool = False
+    augment_magnitude_rad: float = 0.0698     # 4 degrees
     normalization_scaling: bool = False
     # Dropout off in the loss forward (the reference's Tester sets it so that
     # test-time losses are deterministic); the step leaves the model's
@@ -106,6 +131,9 @@ class StepConfig(NamedTuple):
             correspondence=str(config["correspondence"]),
             window=tuple(int(w) for w in config["projective_window"]),
             supervised=supervised,
+            augment=bool(config["random_point_cloud_rotations"]),
+            augment_only_yaw=bool(config["random_rotations_only_yaw"]),
+            augment_magnitude_rad=float(config["magnitude_random_rot"]) / 180.0 * math.pi,
             normalization_scaling=bool(config["normalization_scaling"]),
             soft_match_sigma=float(config["soft_match_sigma"]),
             lambda_rev_po2pl=float(config["lambda_reverse_po2pl"]),
@@ -120,6 +148,24 @@ class ScanPairBatch(NamedTuple):
     points_1: torch.Tensor
     normals_1: torch.Tensor
     valid_1: torch.Tensor
+    points_2: torch.Tensor
+    normals_2: torch.Tensor
+    valid_2: torch.Tensor
+
+
+class CachedTargetBatch(NamedTuple):
+    """A batch whose target projection artifacts are precomputed
+    (``ops/projection_host.py::scan_artifacts_np``) and whose source is raw.
+
+    image_1:        [B, H, W, 4] target xyz + range (zeros at empty pixels).
+    normal_image_1: [B, H, W, 3] target normals (zero = no normal).
+    mean_range_1:   [B] target mean range (pair normalization).
+    points_2 / normals_2 / valid_2: the source as in :class:`ScanPairBatch`.
+    """
+
+    image_1: torch.Tensor
+    normal_image_1: torch.Tensor
+    mean_range_1: torch.Tensor
     points_2: torch.Tensor
     normals_2: torch.Tensor
     valid_2: torch.Tensor
@@ -147,6 +193,41 @@ class FullyCachedBatch(NamedTuple):
     src_normals: torch.Tensor
     src_valid: torch.Tensor
     mean_range_2: torch.Tensor
+
+
+def augment_rotations(cfg: StepConfig, batch_size: int, generator: torch.Generator
+                      ) -> torch.Tensor:
+    """The augmentation's ``[B, 3, 3]`` rotations, drawn from ``generator``
+    on its device as the reference draws them (step.py:120-133): the axis
+    uniform in [0, 1)^3 normalised (so in the positive octant), or z with
+    ``augment_only_yaw``; the angle (uniform[0, 1) - 0.5) * magnitude."""
+    device = generator.device
+    direction = torch.rand((batch_size, 3), generator=generator, device=device)
+    if cfg.augment_only_yaw:
+        direction = torch.tensor([0.0, 0.0, 1.0], device=device).expand(batch_size, 3)
+    else:
+        direction = direction / torch.clamp(
+            torch.linalg.norm(direction, dim=-1, keepdim=True), min=1e-9)
+    magnitude = ((torch.rand((batch_size, 1), generator=generator, device=device) - 0.5)
+                 * cfg.augment_magnitude_rad)
+    return se3.axis_angle_to_rotmat(direction * magnitude)
+
+
+def _augment(points: torch.Tensor, normals: torch.Tensor,
+             rotations: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Points and normals ``[B, N, 3]`` rotated by ``rotations`` [B, 3, 3]
+    (rows times R^T)."""
+    if rotations is None:
+        raise ValueError("augmentation is on: pass the [B, 3, 3] rotations "
+                         "(train_step draws them from its augment_generator)")
+    Rt = rotations.to(points.dtype).transpose(-1, -2)
+    return points @ Rt, normals @ Rt
+
+
+def _mean_range(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[B] mean range over the valid points (the reference's mean_range)."""
+    m = valid.to(points.dtype)
+    return (torch.linalg.norm(points, dim=-1) * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
 
 
 def _warped_image(pos_sel, src_valid, vals, spec: ProjectionSpec):
@@ -227,6 +308,12 @@ def _loss_tail(model, image_1, target_normal_image, image_2, pts_c, nrm_c, src_v
         loss_src = (s_xyz, s_nrm, corr.valid)
         if cfg.lambda_rev_po2pl > 0.0:
             rev_po2pl = _reverse_po2pl(s_all, wimage, image_1, cfg)
+    elif cfg.correspondence == "projective":
+        src_pts = se3.transform_points(T, pts_c)
+        src_nrm = se3.rotate_points(T, nrm_c)
+        corr = projective_correspondence(src_pts, src_valid, image_1, target_normal_image,
+                                         spec, cfg.window)
+        loss_src = (src_pts, src_nrm, src_valid)
     elif cfg.correspondence == "brute":
         if brute_target is None:
             raise ValueError("brute-force correspondence needs the raw target points "
@@ -237,7 +324,7 @@ def _loss_tail(model, image_1, target_normal_image, image_2, pts_c, nrm_c, src_v
         corr = brute_force_correspondence(src_pts, src_valid, points_1, survivor_1, normals_1)
         loss_src = (src_pts, src_nrm, src_valid)
     else:
-        raise NotImplementedError(f"correspondence {cfg.correspondence!r} is not ported")
+        raise ValueError(f"unknown correspondence {cfg.correspondence!r}")
     per_pair = icp_losses(*loss_src, corr, cfg.icp)
 
     eye = torch.eye(4, dtype=T.dtype, device=T.device)
@@ -272,48 +359,74 @@ def _loss_tail(model, image_1, target_normal_image, image_2, pts_c, nrm_c, src_v
 
 
 def loss_and_metrics_fullcached(model, batch: FullyCachedBatch, cfg: StepConfig,
-                                generator: Optional[torch.Generator] = None
+                                generator: Optional[torch.Generator] = None,
+                                rotations: Optional[torch.Tensor] = None
                                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Loss and metrics of one :class:`FullyCachedBatch` (augmentation off,
-    image matcher). ``generator`` draws the dropout masks.
+    """Loss and metrics of one :class:`FullyCachedBatch` (image or
+    projective matcher). ``generator`` draws the dropout masks;
+    ``rotations`` [B, 3, 3] rotate the source when ``cfg.augment``.
 
     Under pair normalization the source points and both images (all four
     channels are linear in 1/s) are divided by s, the mean of the two scans'
-    mean ranges; the target normal image is not.
+    mean ranges; the target normal image is not. With augmentation the
+    rotated survivors are projected again (:func:`_loss_core`) in place of
+    the cached source image; rotation keeps ranges, so the cached mean range
+    still holds.
     """
-    if cfg.correspondence != "image":
-        raise ValueError("the fully-cached feed needs the image matcher")
-    image_1, image_2, src_pts = batch.image_1, batch.image_2, batch.src_points
+    if cfg.correspondence not in ("image", "projective"):
+        raise ValueError("the fully-cached feed needs the image or the projective matcher")
+    image_1, image_2 = batch.image_1, batch.image_2
+    src_pts, src_nrm = batch.src_points, batch.src_normals
+    if cfg.augment:
+        src_pts, src_nrm = _augment(src_pts, src_nrm, rotations)
     if cfg.normalization_scaling:
         s = (0.5 * (batch.mean_range_1 + batch.mean_range_2))[:, None, None]
         src_pts = src_pts / s
         image_1 = image_1 / s[..., None]
         image_2 = image_2 / s[..., None]
-    return _loss_tail(model, image_1, batch.normal_image_1, image_2, src_pts,
-                      batch.src_normals, batch.src_valid, cfg, generator)
+    if cfg.augment:
+        return _loss_core(model, image_1, batch.normal_image_1, src_pts, src_nrm,
+                          batch.src_valid, cfg, generator)
+    return _loss_tail(model, image_1, batch.normal_image_1, image_2, src_pts, src_nrm,
+                      batch.src_valid, cfg, generator)
+
+
+def loss_and_metrics_cached(model, batch: CachedTargetBatch, cfg: StepConfig,
+                            generator: Optional[torch.Generator] = None,
+                            rotations: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Loss and metrics of one :class:`CachedTargetBatch`: the source
+    (rotated when ``cfg.augment``) projected and compacted in the step.
+    Under pair normalization s is the mean of the cached target mean range
+    and the source's, and the source points and all four channels of the
+    target image are divided by it."""
+    points_2, normals_2 = batch.points_2, batch.normals_2
+    if cfg.augment:
+        points_2, normals_2 = _augment(points_2, normals_2, rotations)
+    image_1 = batch.image_1
+    if cfg.normalization_scaling:
+        scale = 0.5 * (batch.mean_range_1 + _mean_range(points_2, batch.valid_2))
+        points_2 = points_2 / scale[:, None, None]
+        image_1 = image_1 / scale[:, None, None, None]
+    return _loss_core(model, image_1, batch.normal_image_1, points_2, normals_2,
+                      batch.valid_2, cfg, generator)
 
 
 def _pair_normalization(batch: ScanPairBatch) -> Tuple[ScanPairBatch, torch.Tensor]:
     """Both clouds divided by the mean of their mean ranges over valid points
     (reference step.py:136-147) -> (batch, the [B] scales)."""
-    def mean_range(p, m):
-        m = m.to(p.dtype)
-        return (torch.linalg.norm(p, dim=-1) * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
-
-    scale = 0.5 * (mean_range(batch.points_1, batch.valid_1)
-                   + mean_range(batch.points_2, batch.valid_2))
+    scale = 0.5 * (_mean_range(batch.points_1, batch.valid_1)
+                   + _mean_range(batch.points_2, batch.valid_2))
     s = scale[:, None, None]
     return batch._replace(points_1=batch.points_1 / s, points_2=batch.points_2 / s), scale
 
 
 def _loss_core(model, image_1, target_normal_image, points_2, normals_2, valid_2,
                cfg: StepConfig, generator=None, brute_target=None):
-    """The source scan projected and compacted in the step, then
-    :func:`_loss_tail` (reference step.py:171-224)."""
+    """The source scan projected and compacted in the step, at any image
+    size (see the module docstring), then :func:`_loss_tail` (reference
+    step.py:171-224)."""
     spec = cfg.proj
-    if spec.height * spec.width >= (1 << 16):
-        raise NotImplementedError(
-            "the raw feed at H*W >= 65536 needs project_scan_compact, which is not ported")
     vals = torch.cat([points_2, normals_2], dim=-1)
     proj_2 = project_compact_exact_batch(points_2, valid_2, spec, values=vals)
     image_2 = torch.cat([proj_2.image[..., 0:3], proj_2.image[..., 6:7]], dim=-1)
@@ -325,10 +438,15 @@ def _loss_core(model, image_1, target_normal_image, points_2, normals_2, valid_2
 
 
 def loss_and_metrics(model, batch: ScanPairBatch, cfg: StepConfig,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None,
+                     rotations: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Loss and metrics of one raw :class:`ScanPairBatch` (augmentation off):
-    both scans are projected here. ``generator`` draws the dropout masks."""
+    """Loss and metrics of one raw :class:`ScanPairBatch`: the source
+    rotated when ``cfg.augment``, then both scans projected here.
+    ``generator`` draws the dropout masks."""
+    if cfg.augment:
+        points_2, normals_2 = _augment(batch.points_2, batch.normals_2, rotations)
+        batch = batch._replace(points_2=points_2, normals_2=normals_2)
     if cfg.normalization_scaling:
         batch, _ = _pair_normalization(batch)
     spec = cfg.proj
@@ -371,19 +489,31 @@ def optax_global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
+_LOSS_FNS = {FullyCachedBatch: loss_and_metrics_fullcached,
+             CachedTargetBatch: loss_and_metrics_cached,
+             ScanPairBatch: loss_and_metrics}
+
+
 def train_step(model, optimizer: torch.optim.Optimizer,
-               batch: Union[FullyCachedBatch, ScanPairBatch], cfg: StepConfig,
+               batch: Union[FullyCachedBatch, CachedTargetBatch, ScanPairBatch],
+               cfg: StepConfig,
                schedule: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
-               ema=None, generator: Optional[torch.Generator] = None
-               ) -> Dict[str, torch.Tensor]:
-    """One Adam step on a fully-cached or a raw batch -> the step's metrics
-    and ``grad_norm``, as 0-d tensors on the batch's device (not read back).
+               ema=None, generator: Optional[torch.Generator] = None,
+               augment_generator: Optional[torch.Generator] = None,
+               rotations: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One Adam step on a batch of any feed -> the step's metrics and
+    ``grad_norm``, as 0-d tensors on the batch's device (not read back).
     ``ema`` (a ``training/state.py::ParamEma``) folds in the updated
-    parameters; ``generator`` draws the dropout masks."""
+    parameters; ``generator`` draws the dropout masks. With ``cfg.augment``
+    the source is rotated by ``rotations`` [B, 3, 3], else by rotations drawn
+    from ``augment_generator`` (:func:`augment_rotations`)."""
     optimizer.zero_grad(set_to_none=True)
-    loss_fn = (loss_and_metrics_fullcached if isinstance(batch, FullyCachedBatch)
-               else loss_and_metrics)
-    loss, metrics = loss_fn(model, batch, cfg, generator)
+    if cfg.augment and rotations is None:
+        if augment_generator is None:
+            raise ValueError("augmentation is on: train_step needs rotations or an "
+                             "augment_generator")
+        rotations = augment_rotations(cfg, batch[0].shape[0], augment_generator)
+    loss, metrics = _LOSS_FNS[type(batch)](model, batch, cfg, generator, rotations)
     loss.backward()
     metrics["grad_norm"] = optax_global_norm(
         [p.grad for p in model.parameters() if p.grad is not None])

@@ -27,6 +27,7 @@ from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
 from delora_tpu_torch.training.checkpoint import deploy_weights, load_checkpoint
 from delora_tpu_torch.training.step import (
     StepConfig,
+    augment_rotations,
     forward_pose,
     infer_step,
     loss_and_metrics,
@@ -162,16 +163,22 @@ class Tester:
     @torch.no_grad()
     def evaluate_losses(self, dataset: str, sequence_index: int) -> Dict[str, float]:
         """Mean losses and metrics over a sequence's batches of raw pairs,
-        without dropout."""
+        without dropout. With augmentation on, every batch is rotated by the
+        same rotations, drawn once from a generator seeded 0 (the reference
+        evaluates every batch at one fixed key)."""
         ds = self._dataset(dataset)
         cfg = StepConfig.from_config(self.config, dataset,
                                      supervised=False)._replace(deterministic=True)
+        rotations = None
+        if cfg.augment:
+            rotations = augment_rotations(cfg, self.batch_size,
+                                          torch.Generator(self.device).manual_seed(0))
         pair_ids = [i for i, (si, _) in enumerate(ds.pairs) if si == sequence_index]
         sums: Dict[str, float] = {}
         count = 0
         for ids, _ in self._chunks(pair_ids):
             batch = batch_to_device(ds.make_batch(ids), self.device)
-            _, metrics = loss_and_metrics(self.model, batch, cfg)
+            _, metrics = loss_and_metrics(self.model, batch, cfg, rotations=rotations)
             count += 1
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)

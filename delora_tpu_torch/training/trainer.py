@@ -5,9 +5,10 @@ metric logging.
 The port of ``delora_tpu/training/trainer.py`` on one device:
 
 - the feed is chosen as the reference's (trainer.py:67-90,
-  ``config.py::training_feed``): "full" for the image matcher with the
-  projection caches on, "raw" for brute correspondence or with the target
-  cache off;
+  ``config.py::training_feed``): "full" for the image or projective matcher
+  with both projection caches on, "cached" (target artifacts, raw source)
+  with ``cache_source_projections: false``, "raw" for brute correspondence
+  or with the target cache off;
 - scans come from memory (``Trainer(config, sequences)``: one dataset, the
   tables always on the device) or, with ``sequences`` None, from the
   preprocessed files of every dataset of ``config["datasets"]``
@@ -16,10 +17,11 @@ The port of ``delora_tpu/training/trainer.py`` on one device:
   projection artifacts (``ops/projection_host.py::scan_artifacts_np``, the
   scan truncated and padded to ``max_points``) are stacked once as tables on
   the device and batches are gathered there by index (reference
-  trainer.py:133-191, :329-352); otherwise (and always for the raw feed
-  from disk) batches stream from the host through ``BatchLoader`` with
-  ``prefetch_depth`` batches made ahead (:541-548); in memory the raw feed's
-  padded points, normals and masks are the tables;
+  trainer.py:133-191, :329-352); otherwise (and always for the cached and
+  raw feeds from disk) batches stream from the host through ``BatchLoader``
+  with ``prefetch_depth`` batches made ahead (:541-548); in memory the raw
+  feed's padded points, normals and masks are the tables, and the cached
+  feed's are every scan's target artifacts beside them;
 - pairs are consecutive scans and never cross sequences; each dataset's
   epoch runs in turn, in the order ``np.random.default_rng(seed +
   epoch).permutation`` truncated to whole batches (data/dataset.py:281-296);
@@ -30,8 +32,10 @@ The port of ``delora_tpu/training/trainer.py`` on one device:
   skips it;
 - with ``ema_decay`` > 0 the parameter EMA follows every step, and
   :meth:`Trainer.deploy_model` is the model to evaluate or serve; with
-  ``use_dropout`` the trainer owns the dropout masks' generator, on its
-  device, seeded from its initialisation generator.
+  ``use_dropout`` the trainer owns the dropout masks' generator, and with
+  ``random_point_cloud_rotations`` the augmentation's, each on its device and
+  seeded from its initialisation generator (dropout's first), so runs
+  without them draw what they drew before.
 
 From disk the trainer also logs each epoch's metrics (``utils/metrics.py``),
 saves a checkpoint when ``epoch % checkpoint_every_epochs == 0`` and after
@@ -40,9 +44,9 @@ every ``checkpoint_keep_every``), evaluates every ``eval_every_epochs``
 unsupervised epochs with the ``Tester`` on the testing identifiers and keeps
 the best state as ``best`` (trainer.py:249-295, :611-616), and resumes from
 ``checkpoint`` or, with ``auto_resume``, from ``latest`` (trainer.py:210-227):
-model, optimizer, schedule, EMA and dropout generator come back, so a resumed
-run takes the steps of an uninterrupted one; it starts after the saved epoch,
-unsupervised.
+model, optimizer, schedule, EMA and the dropout and augmentation generators
+come back, so a resumed run takes the steps of an uninterrupted one; it
+starts after the saved epoch, unsupervised.
 
 A plain Python loop takes the steps: the reference's ``lax.scan`` over
 ``steps_per_dispatch`` steps only amortizes the TPU's dispatch round trip, so
@@ -78,6 +82,7 @@ from delora_tpu_torch.training.state import (
     make_param_ema,
 )
 from delora_tpu_torch.training.step import (
+    CachedTargetBatch,
     FullyCachedBatch,
     ScanPairBatch,
     StepConfig,
@@ -100,17 +105,11 @@ def padded_scan(points: np.ndarray, normals: np.ndarray, max_points: int
                     max_points)
 
 
-def padded_artifacts(points: np.ndarray, normals: np.ndarray, max_points: int,
-                     spec: ProjectionSpec) -> ScanArtifacts:
-    """One scan's artifacts, the scan padded by :func:`padded_scan`, as the
-    reference's dataset feeds ``scan_artifacts_np``."""
-    return scan_artifacts_np(*padded_scan(points, normals, max_points), spec)
-
-
 class PairFeed(NamedTuple):
     """One dataset's scan pairs on the trainer: device ``tables`` (full feed:
-    ``ScanArtifacts`` of every scan; raw feed: (points, normals, valid)) with
-    each pair's target and source rows, or a host ``loader``."""
+    ``ScanArtifacts`` of every scan; raw feed: (points, normals, valid);
+    cached feed: (image, normal_image, mean_range, points, normals, valid))
+    with each pair's target and source rows, or a host ``loader``."""
 
     spec: ProjectionSpec
     tables: Optional[Union[ScanArtifacts, tuple]] = None
@@ -128,8 +127,8 @@ class Trainer:
     holds, per sequence, a list of (points, normals) arrays of ``dataset``; a
     zero normal means "no normal"; None reads every dataset of
     ``config["datasets"]`` from disk. ``generator`` seeds the initialisation
-    (and the dropout generator's seed); by default it is seeded with the
-    config's ``seed`` (0)."""
+    (and the dropout and augmentation generators' seeds); by default it is
+    seeded with the config's ``seed`` (0)."""
 
     def __init__(self, config, sequences: Optional[Sequence[Sequence[Scan]]] = None, *,
                  device: Optional[Union[str, torch.device]] = None,
@@ -154,10 +153,13 @@ class Trainer:
         self.optimizer, self.schedule = make_optimizer(
             config, self.model.parameters(), self.batch_size)
         self.ema = make_param_ema(config, self.model)
-        self.dropout_generator = None
+        self.dropout_generator = self.augment_generator = None
         if config["use_dropout"]:
             seed = int(torch.randint(0, 2**62, (), generator=generator))
             self.dropout_generator = torch.Generator(self.device).manual_seed(seed)
+        if config["random_point_cloud_rotations"]:
+            seed = int(torch.randint(0, 2**62, (), generator=generator))
+            self.augment_generator = torch.Generator(self.device).manual_seed(seed)
 
         if sequences is not None:
             self.feeds = {dataset: self._memory_feed(sequences, dataset)}
@@ -198,10 +200,15 @@ class Trainer:
         tgt, src = [], []
         for scans in sequences:
             first = len(rows)
-            if self.feed == "full":
-                rows.extend(padded_artifacts(p, n, max_points, spec) for p, n in scans)
-            else:
-                rows.extend(padded_scan(p, n, max_points) for p, n in scans)
+            for p, n in scans:
+                padded = padded_scan(p, n, max_points)
+                if self.feed == "raw":
+                    rows.append(padded)
+                elif self.feed == "full":
+                    rows.append(scan_artifacts_np(*padded, spec))
+                else:
+                    a = scan_artifacts_np(*padded, spec)
+                    rows.append((a.image, a.normal_image, a.mean_range, *padded))
             tgt.extend(range(first, len(rows) - 1))
             src.extend(range(first + 1, len(rows)))
         if len(tgt) < self.batch_size:
@@ -216,7 +223,7 @@ class Trainer:
             if len(ds) < self.batch_size:
                 raise ValueError(f"{name}: {len(ds)} scan pairs make no batch of "
                                  f"{self.batch_size}")
-        if self.feed == "full" and bool(config.get("prewarm_cache", True)):
+        if self.feed != "raw" and bool(config.get("prewarm_cache", True)):
             threads = int(config.get("prewarm_threads", 8))
             t0 = time.time()
             n = sum(ds.prewarm_artifacts(threads) for ds in data.values())
@@ -259,11 +266,13 @@ class Trainer:
         return epoch_permutation(feed.num_pairs, self.batch_size, self.seed, epoch)
 
     def batch(self, tgt: torch.Tensor, src: torch.Tensor, dataset: Optional[str] = None
-              ) -> Union[FullyCachedBatch, ScanPairBatch]:
+              ) -> Union[FullyCachedBatch, CachedTargetBatch, ScanPairBatch]:
         """Gather the batch of pairs (tgt[i], src[i]) from the device tables."""
         t = self.feeds[dataset or self.dataset].tables
         if self.feed == "raw":
             return ScanPairBatch(*(x[tgt] for x in t), *(x[src] for x in t))
+        if self.feed == "cached":
+            return CachedTargetBatch(*(x[tgt] for x in t[:3]), *(x[src] for x in t[3:]))
         return FullyCachedBatch(t.image[tgt], t.normal_image[tgt], t.mean_range[tgt],
                                 t.image[src], t.src_points[src], t.src_normals[src],
                                 t.src_valid[src], t.mean_range[src])
@@ -282,12 +291,12 @@ class Trainer:
 
     # ---- steps and epochs -------------------------------------------------
 
-    def step(self, batch: Union[FullyCachedBatch, ScanPairBatch], cfg: StepConfig
-             ) -> Dict[str, torch.Tensor]:
-        """One train step of the trainer's model, optimizer, schedule, EMA and
-        dropout generator."""
+    def step(self, batch: Union[FullyCachedBatch, CachedTargetBatch, ScanPairBatch],
+             cfg: StepConfig) -> Dict[str, torch.Tensor]:
+        """One train step of the trainer's model, optimizer, schedule, EMA,
+        dropout and augmentation generators."""
         return train_step(self.model, self.optimizer, batch, cfg, self.schedule, self.ema,
-                          self.dropout_generator)
+                          self.dropout_generator, self.augment_generator)
 
     def deploy_model(self) -> torch.nn.Module:
         """The model to evaluate or serve: the EMA weights when tracked."""
@@ -351,14 +360,16 @@ class Trainer:
 
     def state_dict(self) -> Dict[str, object]:
         """What a checkpoint holds: the model, the optimizer, the schedule,
-        and the EMA and the dropout generator's state where the run has
-        them."""
+        and the EMA and the dropout and augmentation generators' states where
+        the run has them."""
         state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                  "schedule": self.schedule.state_dict()}
         if self.ema is not None:
             state["ema"] = ema_params(self.ema)
         if self.dropout_generator is not None:
             state["dropout_generator"] = self.dropout_generator.get_state()
+        if self.augment_generator is not None:
+            state["augment_generator"] = self.augment_generator.get_state()
         return state
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
@@ -372,6 +383,8 @@ class Trainer:
                     value.copy_(ema[name])
         if self.dropout_generator is not None:
             self.dropout_generator.set_state(state["dropout_generator"])
+        if self.augment_generator is not None:
+            self.augment_generator.set_state(state["augment_generator"])
 
     def _resume(self) -> None:
         checkpoint = self.config.get("checkpoint")

@@ -3,8 +3,9 @@ the trainer's resume: a save and restore round trip is exact; the names and
 cadence are the JAX package's ``CheckpointManager``'s; the embedded config
 comes back; and on the CPU, two epochs equal one epoch, a resume from
 ``latest`` and one more epoch, bit for bit, with and without the parameter
-EMA (and with dropout, whose generator is part of the state), and under a
-cosine learning-rate schedule.
+EMA (and with dropout, whose generator is part of the state), under a
+cosine learning-rate schedule, and with augmentation (its generator is part
+of the state too).
 """
 
 import json
@@ -28,6 +29,8 @@ torch.set_num_threads(1)
 RECIPE = {"ema_decay": 0.9, "use_dropout": True, "soft_match_sigma": 0.3,
           "lambda_reverse_po2pl": 1.0}
 COSINE = {"lr_schedule": "cosine", "lr_decay_steps": 5, "lr_min_ratio": 0.1}
+AUGMENT = {"random_point_cloud_rotations": True}
+AUGMENT_CACHED = {"random_point_cloud_rotations": True, "cache_source_projections": False}
 
 
 @pytest.fixture(scope="module")
@@ -109,11 +112,14 @@ def test_embedded_config(root):
     assert CheckpointManager.embedded_config(str(root / "nowhere" / "latest")) is None
 
 
-@pytest.mark.parametrize("tag,extra", [("plain", {}), ("recipe", RECIPE), ("cosine", COSINE)],
-                         ids=["plain", "recipe", "cosine"])
+@pytest.mark.parametrize("tag,extra", [("plain", {}), ("recipe", RECIPE), ("cosine", COSINE),
+                                       ("augment", AUGMENT),
+                                       ("augment_cached", AUGMENT_CACHED)],
+                         ids=["plain", "recipe", "cosine", "augment", "augment_cached"])
 def test_resume_equals_an_uninterrupted_run(root, tag, extra):
     """The recipe carries the EMA and the dropout generator, the cosine
-    schedule its step count."""
+    schedule its step count, augmentation its generator (on the fully-cached
+    and the cached-target feed)."""
     straight = Trainer(config(root, f"straight_{tag}", **extra), device="cpu")
     full = straight.train(2)
 

@@ -53,17 +53,12 @@ def test_config_rejects_bad_values():
 
 
 @pytest.mark.parametrize("override", [
-    {"random_point_cloud_rotations": True},
-    {"correspondence": "projective"},
-    {"fused_adam": True},
-    {"cache_source_projections": False},
     {"native_io": True},
     {"profile_epochs": [1]},
     {"kitti": {"dataset_type": "rosbag"}},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()).replace(" ", ""))
 def test_unported_settings_raise(override):
-    """Settings whose code the port does not have are refused, never run
-    (``cache_source_projections: false`` selects the cached-target feed)."""
+    """Settings whose code the port does not have are refused, never run."""
     with pytest.raises(NotImplementedError):
         default_config(override)
 
@@ -75,10 +70,17 @@ def test_unported_settings_raise(override):
     {"use_dropout": True},
     {"correspondence": "brute"},
     {"cache_target_projections": False},
+    {"random_point_cloud_rotations": True},
+    {"correspondence": "projective"},
+    {"fused_adam": True},
+    {"cache_source_projections": False},
+    {"remat": True},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_ported_settings_are_accepted_and_run(override):
-    """The quality recipe's settings, brute correspondence and the raw feed
-    pass validation and train: one epoch of a tiny world on the CPU."""
+    """The quality recipe's settings, brute and projective correspondence,
+    augmentation, the raw and the cached-target feeds
+    (``cache_source_projections: false``), ``fused_adam`` and ``remat`` pass
+    validation and train: one epoch of a tiny world on the CPU."""
     import numpy as np
     import torch
 
@@ -101,6 +103,10 @@ def test_feed_follows_the_reference():
     assert training_feed(default_config({"cache_target_projections": False})) == "raw"
     config = default_config({"correspondence": "brute", "cache_source_projections": False})
     assert training_feed(config) == "raw"
+    assert training_feed(default_config({"cache_source_projections": False})) == "cached"
+    config = default_config({"correspondence": "projective", "cache_source_projections": False})
+    assert training_feed(config) == "cached"
+    assert training_feed(default_config({"correspondence": "projective"})) == "full"
 
 
 def test_config_carries_the_training_keys():
@@ -127,3 +133,5 @@ def test_config_rejects_bad_training_values():
         default_config({"ema_decay": 1.0})
     with pytest.raises(ValueError):
         default_config({"soft_match_sigma": -0.1})
+    with pytest.raises(ValueError):
+        default_config({"correspondence": "kdtree"})

@@ -688,3 +688,38 @@ def test_normal_image_on_the_card_matches_the_cpu(cuda, monkeypatch):
     held = has & (kappa <= 300.0)
     assert (diff[held] <= 4e-6 * kappa[held]).all()
     assert (diff[has] <= 1e-4).double().mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_source_compaction_at_64x1024_bit_equal_to_plain_on_cuda(cuda, monkeypatch):
+    """The raw feed's source compaction at 64x1024 (65,536 pixels, the
+    reference's ``project_scan_compact`` branch), B = 8, on KITTI-sized
+    clouds with duplicates and range near-ties: one exact-rule launch, and
+    the image, the compacted rows and their mask equal to the plain
+    version's on the card. (Not to the CPU's: among 8 x 131,072 points the
+    card's pixel coordinates put some point on the other side of a rounding
+    boundary.)"""
+    rng = np.random.default_rng(9)
+    spec = tproj.ProjectionSpec(height=64, width=1024, **FOV)
+    n = 131072
+    az = rng.uniform(-math.pi, math.pi, (8, n))
+    el = rng.uniform(FOV["fov_down"] - 0.05, FOV["fov_up"] + 0.05, (8, n))
+    r = rng.uniform(1.0, 80.0, (8, n))
+    pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                    r * np.sin(el)], -1).astype(np.float32)
+    pts[:, 1::8] = pts[:, 0::8] * np.float32(1 - 1e-4)
+    pts[:, 2::16] = pts[:, 0::16]
+    valid = rng.random((8, n)) > 0.1
+    vals = np.concatenate([pts, rng.normal(size=(8, n, 3)).astype(np.float32)], -1)
+    args = [torch.from_numpy(x) for x in (pts, valid)]
+    before = launch_counts()
+    out = tproj.project_compact_exact_batch(*(a.to(cuda) for a in args), spec,
+                                            values=torch.from_numpy(vals).to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts() == one_more(before)
+    monkeypatch.setattr(tproj, "placement", placement_plain)
+    ref_card = tproj.project_compact_exact_batch(*(a.to(cuda) for a in args), spec,
+                                                 values=torch.from_numpy(vals).to(cuda))
+    assert ref_card.comp_mask.sum(1).min() > 40000
+    for got, want in zip(out, ref_card):
+        assert torch.equal(got, want)

@@ -108,6 +108,31 @@ def test_pairs_and_batches_equal_the_reference(data):
             np.testing.assert_array_equal(got, want)
 
 
+def test_cached_batch_equals_the_reference(data):
+    """The cached-target feed's batch: target artifacts and raw sources as
+    the reference's ``make_cached_batch``; its mean ranges equal the numpy
+    route's and lie within one ulp of the native one (see above)."""
+    _, ds, ref = data
+    indices = [5, 1, 2, 6]
+    batch, ref_batch = ds.make_cached_batch(indices), ref.make_cached_batch(indices)
+    assert batch._fields == ref_batch._fields
+    for field in batch._fields:
+        got, want = getattr(batch, field), getattr(ref_batch, field)
+        assert got.dtype == want.dtype and got.shape == want.shape, field
+        if field == "mean_range_1":
+            np.testing.assert_allclose(got, want, rtol=2.5e-7)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=field)
+    spec = JaxProjectionSpec.from_config(ref.config, "kitti")
+    numpy_route = [jax_scan_artifacts_np(*ds.get_scan(*ds.pairs[i]), spec, use_native=False)
+                   for i in indices]
+    np.testing.assert_array_equal(batch.mean_range_1,
+                                  np.asarray([a.mean_range for a in numpy_route], np.float32))
+    full = ds.make_fullcached_batch(indices)
+    for field in ("image_1", "normal_image_1", "mean_range_1"):
+        np.testing.assert_array_equal(getattr(batch, field), getattr(full, field))
+
+
 def test_truncation_at_load_without_the_ram_cache(tmp_path):
     write_preprocessed(str(tmp_path))
     cfg = dataset_overrides(tmp_path, store_dataset_in_RAM=False,
@@ -136,11 +161,12 @@ def test_epoch_order_equals_the_reference_loader(data, seed):
     assert epoch_permutation(len(ds), 8, seed, 0).size == 0
 
 
-@pytest.mark.parametrize("feed", ["raw", "full"])
+@pytest.mark.parametrize("feed", ["raw", "full", "cached"])
 def test_loader_epoch_is_the_permutation_in_batches(data, feed):
     _, ds, _ = data
     loader = BatchLoader(ds, 2, device="cpu", seed=3, feed=feed, prefetch=1)
-    make = ds.make_batch if feed == "raw" else ds.make_fullcached_batch
+    make = {"raw": ds.make_batch, "full": ds.make_fullcached_batch,
+            "cached": ds.make_cached_batch}[feed]
     order = loader.global_epoch_indices(5).reshape(-1, 2)
     batches = list(loader.epoch(5))
     assert len(batches) == len(order) == 3
@@ -184,4 +210,36 @@ def test_streamed_feed_trains_as_the_resident_feed(data):
             if key not in ("epoch_seconds", "scan_pairs_per_sec"):
                 assert a[key] == b[key], key
     for (name, p), q in zip(resident.model.named_parameters(), streamed.model.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_cached_feed_streams_as_the_memory_tables(data):
+    """The cached-target feed streams from disk; a trainer given the same
+    scans in memory gathers the same batches from its device tables, so the
+    two take the same steps, with augmentation too (the same generator
+    seeds)."""
+    root, ds, _ = data
+    cfg = default_config(dataset_overrides(root, cache_source_projections=False,
+                                           random_point_cloud_rotations=True))
+    streamed = Trainer(cfg, device="cpu", run_name="cached_streamed")
+    assert streamed.feed == "cached" and streamed.feeds["kitti"].tables is None
+    sequences = [[ds._cache[(si, k)] for k in range(len(scans))]
+                 for si, scans in enumerate(ds.scan_files)]
+    memory = Trainer(cfg, sequences, device="cpu")
+    tables = memory.feeds["kitti"].tables
+    assert [t.shape[0] for t in tables] == [9] * 6 and tables[2].dtype == torch.float32
+    np.testing.assert_array_equal(memory.feeds["kitti"].pair_target, [0, 1, 2, 3, 5, 6, 7])
+    loader_batches = list(streamed.feeds["kitti"].loader.epoch(1))
+    memory_batches = list(memory.batches(1, "kitti"))
+    assert len(loader_batches) == len(memory_batches) == 3
+    for a, b in zip(loader_batches, memory_batches):
+        assert type(a).__name__ == type(b).__name__ == "CachedTargetBatch"
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    h_str, h_mem = streamed.train(2), memory.train(2)
+    for a, b in zip(h_str, h_mem):
+        for key in a:
+            if key not in ("epoch_seconds", "scan_pairs_per_sec"):
+                assert a[key] == b[key], key
+    for (name, p), q in zip(streamed.model.named_parameters(), memory.model.parameters()):
         assert torch.equal(p, q), name

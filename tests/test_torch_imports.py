@@ -27,7 +27,8 @@ def test_port_files_found():
                    "ops/cuda/placement.py", "ops/correspondence.py", "ops/projection.py",
                    "training/step.py", "training/state.py", "training/trainer.py",
                    "models/resnet.py", "ops/eigh3.py", "ops/normals.py", "data/preprocess.py",
-                   "data/dataset.py", "training/checkpoint.py", "training/tester.py", "cli.py"):
+                   "data/dataset.py", "training/checkpoint.py", "training/tester.py", "cli.py",
+                   "se3.py", "models/odometry.py", "config.py"):
         assert ROOT / "delora_tpu_torch" / module in PORT_FILES, module
 
 

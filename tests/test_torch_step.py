@@ -151,30 +151,43 @@ RAW_CASES = {
 }
 
 
-def step_configs(kw):
+def step_configs(kw, spec=PSPEC):
     """(JAX StepConfig, port StepConfig, model keywords) of a case."""
     kw = dict(kw)
     trim = kw.pop("trim", 0.0)
     model_kw = {k: kw.pop(k) for k in ("use_dropout",) if k in kw}
     kw.setdefault("correspondence", "image")
-    jcfg = jstep.StepConfig(proj=PSPEC, icp=JaxIcpLossConfig(trim_sq_distance=trim * trim),
+    jcfg = jstep.StepConfig(proj=spec, icp=JaxIcpLossConfig(trim_sq_distance=trim * trim),
                             **kw)
-    cfg = tstep.StepConfig(proj=TSPEC, icp=IcpLossConfig(trim_sq_distance=trim * trim), **kw)
+    cfg = tstep.StepConfig(proj=ProjectionSpec(*spec),
+                           icp=IcpLossConfig(trim_sq_distance=trim * trim), **kw)
     return jcfg, cfg, model_kw
 
 
-def check_step_against_jax(jax_loss_fn, jbatch, port_loss_fn, batch, params, kw):
+def check_step_against_jax(jax_loss_fn, jbatch, port_loss_fn, batch, params, kw, spec=PSPEC):
     """Loss, metrics and gradients of one step of each package on the same
-    params and batch."""
-    jcfg, cfg, model_kw = step_configs(kw)
-    jmodel = JaxOdometryModel(JaxModelConfig(compute_dtype=jnp.float32, **MODEL, **model_kw))
-    grad_fn = jax.jit(jax.value_and_grad(
-        lambda p: jax_loss_fn(jmodel.apply, p, jbatch, jcfg, jax.random.PRNGKey(0)),
-        has_aux=True))
-    (loss_ref, (metrics_ref, _)), grads_ref = grad_fn(params)
+    params and batch (the reference's rng is ``PRNGKey(0)``). With
+    augmentation the port's step gets the rotations the reference's step
+    drew, read in the same compiled program
+    (``tests/test_torch_augment.py::reference_rotations``)."""
+    from tests.test_torch_augment import reference_rotations
 
+    jcfg, cfg, model_kw = step_configs(kw, spec)
+    jmodel = JaxOdometryModel(JaxModelConfig(compute_dtype=jnp.float32, **MODEL, **model_kw))
+    key = jax.random.PRNGKey(0)
+    B = batch[0].shape[0]
+
+    def step_and_rotations(p):
+        out = jax.value_and_grad(lambda q: jax_loss_fn(jmodel.apply, q, jbatch, jcfg, key),
+                                 has_aux=True)(p)
+        return out, (reference_rotations(jax.random.split(key)[0], B, jcfg)
+                     if jcfg.augment else None)
+
+    ((loss_ref, (metrics_ref, _)), grads_ref), rotations = jax.jit(step_and_rotations)(params)
     model = port_model(params, **model_kw)
-    loss, metrics = port_loss_fn(model, batch, cfg)
+    if rotations is not None:
+        rotations = torch.from_numpy(np.array(rotations))
+    loss, metrics = port_loss_fn(model, batch, cfg, rotations=rotations)
     loss.backward()
 
     np.testing.assert_allclose(loss.item(), float(loss_ref), rtol=1e-5)
@@ -210,15 +223,21 @@ def test_raw_loss_metrics_and_grads_match_jax(data, scan_pairs, case):
 
 
 def test_raw_feed_beyond_65536_pixels_raises():
-    """The reference compacts the source with ``project_scan_compact`` there,
-    which is not ported: the step refuses before it runs the model."""
+    """The batch the step once refused at H*W >= 65536 now runs: the source
+    compaction there (the reference's ``project_scan_compact``) is the exact
+    rule's ``project_compact_exact_batch``. The name is kept from when the
+    step raised; ``tests/test_torch_cached_step.py`` holds the step at
+    64x1024 against JAX's."""
     spec = ProjectionSpec(64, 1024, *TSPEC[2:])
     cfg = tstep.StepConfig(proj=spec, icp=IcpLossConfig(), correspondence="brute")
     pts = torch.ones(1, 64, 3)
     batch = tstep.ScanPairBatch(pts, pts, torch.ones(1, 64, dtype=torch.bool), pts, pts,
                                 torch.ones(1, 64, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="project_scan_compact"):
-        tstep.loss_and_metrics(None, batch, cfg)
+    model = OdometryModel(ModelConfig(compute_dtype=torch.float32, **MODEL))
+    loss, metrics = tstep.loss_and_metrics(model, batch, cfg)
+    assert torch.isfinite(loss) and all(torch.isfinite(v) for v in metrics.values())
+    loss.backward()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
 def test_brute_batch_has_no_near_ties(scan_pairs):
@@ -320,9 +339,21 @@ def test_linear_lr_scaling():
 
 @pytest.mark.parametrize("key", ["fused_adam"])
 def test_unported_optimizer_settings_raise(key):
-    config = {"learning_rate": 1e-4, key: True}
-    with pytest.raises(NotImplementedError):
-        make_optimizer(config, torch.nn.Linear(2, 1).parameters(), 8)
+    """``fused_adam``, once refused, is accepted and runs the same update as
+    without it (the name is kept from then; ``tests/test_torch_remat.py``
+    holds the update against optax's ``flatten(adam)``)."""
+    rng = np.random.default_rng(4)
+    w0 = rng.normal(size=(3, 2)).astype(np.float32)
+    grads = [rng.normal(size=(3, 2)).astype(np.float32) for _ in range(3)]
+    params = []
+    for config in ({"learning_rate": 1e-2, key: True}, {"learning_rate": 1e-2}):
+        p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+        optimizer, _ = make_optimizer(config, [p], 8)
+        for g in grads:
+            p.grad = torch.from_numpy(g)
+            optimizer.step()
+        params.append(p.detach())
+    assert torch.equal(params[0], params[1]) and not torch.equal(params[0], torch.from_numpy(w0))
 
 
 def test_ema_is_off_by_default_and_allocates_nothing():

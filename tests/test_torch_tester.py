@@ -4,7 +4,7 @@ JAX package's on the same preprocessed drive and the same parameters
 KITTI t_rel / r_rel (ground truth spaced 20 m a scan, so 100 m segments
 exist) or the per-step RPE (the drive's own 0.8 m a scan) within 1e-4
 relative, on the cached and the uncached path, and the evaluated losses
-within rtol 1e-4. The pose utilities (``utils/poses.py``) equal the JAX
+(image and projective matchers) within rtol 1e-4. The pose utilities (``utils/poses.py``) equal the JAX
 package's.
 """
 
@@ -147,3 +147,17 @@ def test_pose_files_round_trip_as_jax(tmp_path):
     assert (tmp_path / "a.txt").read_text() == (tmp_path / "b.txt").read_text()
     np.testing.assert_array_equal(tposes.read_poses_from_text_file(str(tmp_path / "a.txt")),
                                   jposes.read_poses_from_text_file(str(tmp_path / "b.txt")))
+
+
+def test_evaluated_projective_losses_match_jax(world):
+    """The loss evaluation with projective correspondence, as the reference's."""
+    root, state, model = world
+    cfg = overrides(root, correspondence="projective")
+    ref = JaxTester(load_config(cfg, mode="testing"), state=state, run_name="jax_proj_losses")
+    port = PortTester(default_config(cfg, mode="testing"), model=model, device="cpu",
+                      run_name="port_proj_losses")
+    want = ref.evaluate_losses("kitti", 0)
+    got = port.evaluate_losses("kitti", 0)
+    assert want["num_po2pl_pairs"] > 10
+    for key in ("loss", "loss_pc", "loss_po2pl", "loss_pl2pl", "num_po2pl_pairs"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4, err_msg=key)
