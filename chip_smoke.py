@@ -104,9 +104,32 @@ exits non-zero without printing a result:
    ``projective`` and ``raw_64x1024`` (at B = 2: the CPU's plain step would
    project 8 x 3 full clouds); for ``remat``, its fp32 loss and gradients
    against no remat on the card and the peak memory of a bf16 step with and
-   without it.
+   without it;
+11. config files, the synthetic drive, the C++ batcher, profiling and the
+   DeLORA weights, at full width: (a) the port's ``write_kitti_layout`` writes
+   24 scans of 64 rings x 2000 azimuth steps with poses, in a child process
+   (it forks a pool; this process holds CUDA), and a JSON config file is
+   written from the port's defaults with the drive's paths; (b) ``preprocess
+   --config`` at 64x2250 (one exact placement a scan); (c) ``train --config``
+   for 3 epochs on the raw feed streamed through the C++ pair batcher
+   (``native_io`` true, the target cache and the RAM cache off), epoch 1
+   traced and the training images on: the batcher engaged, two epochs of its
+   batches bit-equal to the Python producer's, the trace names the placement
+   and hard matcher kernels and the step's regions, without matplotlib the
+   image logging's skip line and no launch for it, each kernel's launches
+   stated before the run and exact, the epochs' pairs/s and the feed's own
+   pairs/s (native against Python, alternated, to the card and on the host
+   only); (d) ``export-torch`` of the
+   run's ``latest`` to a ``.pth`` whose weights are the checkpoint's live
+   weights bit for bit, served by ``StreamingOdometry(params=
+   load_reference_checkpoint(...))`` on 12 scans (one exact placement each,
+   poses finite, rigid and bit-equal to serving the weights directly); (e)
+   the training panels on the card (two exact placements, one packed, one
+   matcher launch) against the CPU's plain path on the same weights and pair
+   in fp32, TF32 off (each panel's pixels within atol 1e-5 + rtol 1e-4 on at
+   least 99.5% of them).
 
-Each path of phases 5-10 is driven with every kernel's launch count set to 0
+Each path of phases 5-11 is driven with every kernel's launch count set to 0
 just before it and read just after; the placement wrapper counts its exact
 and its packed rule apart. A path fails unless each of its kernels launched
 as often as the path should launch it and every other kernel not at all.
@@ -2147,6 +2170,277 @@ def run_new_paths(drive_scans, card) -> None:
         torch.cuda.empty_cache()
 
 
+# Phase 11: the sixth slice's path. A drive written by the port's synthetic
+# writer, preprocessed and trained from JSON config files on the raw feed
+# streamed through the C++ pair batcher, one epoch traced, the weights
+# exported to the DeLORA .pth layout and served from it, and the training
+# panels on the card against the CPU.
+SYNTH_SCANS, SYNTH_RINGS, SYNTH_STEPS = 24, 64, 2000
+NATIVE_EPOCHS = 3
+NATIVE_OVERRIDES = ["native_io=true", "cache_target_projections=false",
+                    "store_dataset_in_RAM=false", "profile_epochs=[1]", "visualize_images=true"]
+# The raw feed's step: the target and the source projected under the exact
+# rule, the warped source under the packed rule, one hard matcher launch.
+NATIVE_PER_STEP = {"placement": 2, "placement_packed": 1, "window_match": 1}
+# The panels: both scans under the exact rule, the transformed source under
+# the packed rule, one hard matcher launch.
+PANEL_LAUNCHES = {"placement": 2, "placement_packed": 1, "window_match": 1}
+# The panels' fp32 card values against the CPU's plain path on the same
+# weights and pair, set before the first run: the card's atan2 and conv sums
+# differ from the CPU's in the last bits, so the pose differs within float32
+# rounding (rtol 1e-4 after a squared residual), and a point that crosses a
+# pixel boundary moves a whole pixel; at most 0.5% of a panel's pixels may.
+PANEL_ATOL, PANEL_RTOL, PANEL_SHARE = 1e-5, 1e-4, 0.995
+SERVE_SCANS = 12
+
+
+class Tee:
+    """Standard output copied into a buffer while it is printed."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def write_synthetic_drive(root: str) -> None:
+    """The port's ``write_kitti_layout`` in a child process: it forks a
+    process pool for more than 8 scans, and this process holds CUDA."""
+    import os
+
+    code = ("import sys; from delora_tpu_torch.data.synthetic import write_kitti_layout; "
+            "write_kitti_layout(sys.argv[1], n_scans=int(sys.argv[2]), rings=int(sys.argv[3]), "
+            "azimuth_steps=int(sys.argv[4]), seed=int(sys.argv[5]))")
+    subprocess.run([sys.executable, "-c", code, root, str(SYNTH_SCANS), str(SYNTH_RINGS),
+                    str(SYNTH_STEPS), str(SEED)],
+                   cwd=os.path.dirname(os.path.abspath(__file__)), check=True, timeout=600)
+
+
+def trace_kernel_names(path: str):
+    with open(path) as f:
+        return {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+
+
+def feed_rate(loader, epochs: int) -> float:
+    """Pairs/s of ``loader``'s batches reaching the card alone (host clock,
+    ``epochs`` epochs, no training)."""
+    t0 = time.perf_counter()
+    pairs = 0
+    for epoch in range(epochs):
+        for batch in loader.epoch(epoch):
+            pairs += batch.points_1.shape[0]
+    torch.cuda.synchronize()
+    return pairs / (time.perf_counter() - t0)
+
+
+def panel_shares(card_panels, cpu_panels):
+    """Each panel's share of pixels whose values agree within PANEL_ATOL +
+    PANEL_RTOL x |cpu|, and its max abs difference."""
+    out = []
+    for a, b in zip(card_panels, cpu_panels):
+        a = a.float().cpu().double()
+        b = b.double()
+        close = (a - b).abs() <= PANEL_ATOL + PANEL_RTOL * b.abs()
+        close = close.reshape(close.shape[0], close.shape[1], -1).all(-1)
+        out.append((close.double().mean().item(), (a - b).abs().max().item()))
+    return out
+
+
+def run_sixth_slice(card) -> None:
+    """Phase 11 (see the module docstring)."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    from delora_tpu_torch import cli
+    from delora_tpu_torch.config import default_config, default_settings, write_config_file
+    from delora_tpu_torch.data.dataset import BatchLoader
+    from delora_tpu_torch.data.kitti import read_velodyne_bin
+    from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
+    from delora_tpu_torch.ops.projection import ProjectionSpec
+    from delora_tpu_torch.serving.stream import StreamingOdometry
+    from delora_tpu_torch.training.checkpoint import load_checkpoint
+    from delora_tpu_torch.training.trainer import training_panels
+    from delora_tpu_torch.utils.torch_import import load_reference_checkpoint
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sixth_")
+    try:
+        # a. The drive and its config file.
+        t0 = time.perf_counter()
+        write_synthetic_drive(os.path.join(root, "raw"))
+        velodyne = os.path.join(root, "raw", "sequences", "00", "velodyne")
+        raw_scans = [read_velodyne_bin(os.path.join(velodyne, n))
+                     for n in sorted(os.listdir(velodyne))]
+        settings = default_settings()
+        settings["kitti"].update({
+            "data_path": os.path.join(root, "raw", "sequences"),
+            "preprocessed_path": os.path.join(root, "preprocessed"),
+            "pose_data_path": os.path.join(root, "raw", "poses"),
+            "training_identifiers": [0], "testing_identifiers": [0]})
+        settings.update({"batch_size": TRAIN_B, "unsupervised_at_start": True,
+                         "log_dir": os.path.join(root, "runs"),
+                         "checkpoint_dir": os.path.join(root, "ckpt")})
+        cfg_path = os.path.join(root, "cfg.json")
+        write_config_file(cfg_path, settings)
+        say(f"synthetic drive (child process, the port's write_kitti_layout): "
+            f"{len(raw_scans)} scans of {SYNTH_RINGS} rings x {SYNTH_STEPS} azimuth steps, "
+            f"{min(map(len, raw_scans))}-{max(map(len, raw_scans))} points each, "
+            f"{time.perf_counter() - t0:.1f} s; config file {cfg_path}")
+
+        # b. Preprocess from the config file: one exact placement a scan.
+        reset_launches()
+        t0 = time.perf_counter()
+        cli.main(["preprocess", "--config", cfg_path])
+        torch.cuda.synchronize()
+        pre_launches = path_launches("synthetic_preprocess", {"placement": len(raw_scans)})
+        pspec = ProjectionSpec.from_config(default_config(files=[cfg_path]), "kitti",
+                                           preprocessing=True)
+        say(f"synthetic preprocess (cli --config, card, {pspec.height}x{pspec.width}): "
+            f"{len(raw_scans)} scans in {time.perf_counter() - t0:.2f} s, launches "
+            f"{pre_launches}")
+
+        # c. Train on the raw feed streamed through the C++ batcher.
+        render = importlib.util.find_spec("matplotlib") is not None
+        steps = NATIVE_EPOCHS * ((len(raw_scans) - 1) // TRAIN_B)
+        expected = {k: v * steps + (PANEL_LAUNCHES[k] if render else 0)
+                    for k, v in NATIVE_PER_STEP.items()}
+        say(f"native train: expecting {steps} steps and launches {expected} (matplotlib "
+            f"{'present: one image logging' if render else 'absent: images skipped'})")
+        tee = Tee(sys.stdout)
+        sys.stdout = tee
+        reset_launches()
+        try:
+            trainer = cli.main(["train", "--config", cfg_path, "--epochs", str(NATIVE_EPOCHS),
+                                "--run-name", "native", "--set"] + NATIVE_OVERRIDES)
+            torch.cuda.synchronize()
+        finally:
+            sys.stdout = tee.stream
+        train_launches = path_launches("native_train", expected)
+        loader = trainer.feeds["kitti"].loader
+        if trainer.feed != "raw" or loader is None or not loader.use_native \
+                or loader._native_loader is None:
+            raise RuntimeError(f"native train: feed {trainer.feed}, the C++ batcher did not "
+                               f"engage")
+        records = epoch_records(trainer)
+        if len(records) != NATIVE_EPOCHS or not all(
+                np.isfinite(v) for r in records for v in r.values()):
+            raise RuntimeError(f"native train: epoch metrics {records}")
+        skipped = "[trainer] image logging skipped:" in tee.text()
+        images = [n for n in os.listdir(os.path.join(trainer.logger.run_dir, "artifacts"))
+                  if n.startswith("images_")]
+        if render != bool(images) or render == skipped:
+            raise RuntimeError(f"native train: images {images}, skip line printed {skipped}, "
+                               f"matplotlib present {render}")
+        trace_path = os.path.join(trainer.logger.run_dir, "artifacts", "profile",
+                                  "epoch_00001.pt.trace.json")
+        names = trace_kernel_names(trace_path)
+        found = {k: any(k in n for n in names)
+                 for k in PLACEMENT_KERNELS + MATCHER_KERNELS + ("train_step", "batch")}
+        if not all(found.values()):
+            raise RuntimeError(f"native train: trace {trace_path} names {found}")
+        say(f"native train (cli --config, card, B={TRAIN_B}, bf16, raw feed through the C++ "
+            f"batcher): set-up {trainer.setup_seconds:.2f} s; epochs " + "; ".join(
+                f"{r['step']}: loss {r['loss']:.6f}, {r['steps']:.0f} steps, "
+                f"{r['scan_pairs_per_sec']:.1f} pairs/s" for r in records)
+            + f"; launches {train_launches}; epoch 1 traced "
+            f"({os.path.getsize(trace_path)} bytes, names {sorted(found)}); images: "
+            + (f"{images}" if render else "skip line printed, nothing launched") + f" on {card}")
+        python = BatchLoader(trainer.pair_datasets["kitti"], TRAIN_B, device="cuda",
+                             seed=trainer.seed, native=False)
+        for epoch in (0, 1):
+            native_batches, python_batches = list(loader.epoch(epoch)), list(python.epoch(epoch))
+            if len(native_batches) != len(python_batches) or not all(
+                    torch.equal(a, b) for nb, pb in zip(native_batches, python_batches)
+                    for a, b in zip(nb, pb)):
+                raise RuntimeError(f"native batches differ from the Python producer's "
+                                   f"(epoch {epoch})")
+        # The feed alone, alternated: to the card, and on the host only (the
+        # same loaders with CPU tensors: no copy to the card).
+        feeds = {"native": loader, "python": python}
+        for label, native in (("native_host", True), ("python_host", False)):
+            feeds[label] = BatchLoader(trainer.pair_datasets["kitti"], TRAIN_B, device="cpu",
+                                       seed=trainer.seed, native=native)
+        rates = {}
+        for label in ("native", "python", "python", "native", "native_host", "python_host",
+                      "python_host", "native_host"):
+            rates.setdefault(label, []).append(feed_rate(feeds[label], 3))
+        say(f"native batches of epochs 0 and 1 bit-equal to the Python producer's "
+            f"({len(native_batches)} batches an epoch, {TRAIN_B} x {loader.dataset.max_points} "
+            f"points); the feed alone, 3 epochs each, alternated, pairs/s: to the card native "
+            f"{rates['native']}, Python producer {rates['python']}; on the host only native "
+            f"{rates['native_host']}, Python producer {rates['python_host']} on {card}")
+
+        # d. Export the checkpoint's live weights to the DeLORA layout, serve them.
+        latest = os.path.join(root, "ckpt", "latest")
+        pth = os.path.join(root, "model.pth")
+        cli.main(["export-torch", "--checkpoint", latest, "--out", pth])
+        live = load_checkpoint(latest)["state"]["model"]
+        from_pth = load_reference_checkpoint(pth)
+        if set(from_pth) != set(live) or not all(torch.equal(from_pth[k], live[k])
+                                                 for k in live):
+            raise RuntimeError("export-torch: the .pth weights are not the checkpoint's live "
+                               "weights")
+        serve_cfg = default_config(base=torch.load(pth, weights_only=True)["parameters"])
+        poses = {}
+        for label, params in (("serve_pth", from_pth), ("serve_direct", live)):
+            engine = StreamingOdometry(serve_cfg, params=params, device="cuda")
+            reset_launches()
+            outs = [engine.push_scan(scan) for scan in raw_scans[:SERVE_SCANS]]
+            torch.cuda.synchronize()
+            path_launches(label, {"placement": SERVE_SCANS})
+            poses[label] = [o[0] for o in outs[1:]]
+            for T in poses[label]:
+                check_rigid(T)
+        if not all(np.array_equal(a, b) for a, b in zip(poses["serve_pth"],
+                                                         poses["serve_direct"])):
+            raise RuntimeError("serving from the .pth differs from serving the weights directly")
+        say(f"export-torch -> {os.path.getsize(pth)} bytes, weights bit-equal to the "
+            f"checkpoint's live weights; served from the .pth: {SERVE_SCANS} scans, one exact "
+            f"placement each, {len(poses['serve_pth'])} poses finite, rigid and bit-equal to "
+            f"serving the weights directly (last translation "
+            f"{np.round(poses['serve_pth'][-1][:3, 3], 4).tolist()}) on {card}")
+
+        # e. The training panels on the card against the CPU, fp32, TF32 off.
+        fp32 = default_config({"compute_dtype": "float32"}, base=trainer.config)
+        spec = ProjectionSpec.from_config(fp32, "kitti")
+        window = tuple(fp32["projective_window"])
+        pair = trainer.pair_datasets["kitti"].get_pair(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        models = {}
+        for dev in ("cuda", "cpu"):
+            model = OdometryModel(ModelConfig.from_config(fp32))
+            model.load_state_dict(live)
+            models[dev] = model.to(dev)
+        reset_launches()
+        card_panels = training_panels(models["cuda"], pair, spec, window, torch.device("cuda"))
+        torch.cuda.synchronize()
+        panel_launches = path_launches("panels", PANEL_LAUNCHES)
+        cpu_panels = training_panels(models["cpu"], pair, spec, window, torch.device("cpu"))
+        shares = panel_shares(card_panels, cpu_panels)
+        labels = ("target range", "source range", "transformed source range", "po2pl",
+                  "target normals", "transformed source normals")
+        if min(share for share, _ in shares) < PANEL_SHARE:
+            raise RuntimeError(f"panels card vs CPU: {dict(zip(labels, shares))}")
+        say("training panels (fp32, TF32 off) card vs CPU plain path on the checkpoint's "
+            f"weights and pair 0: launches {panel_launches}; share of pixels within atol "
+            f"{PANEL_ATOL} + rtol {PANEL_RTOL} (limit {PANEL_SHARE}), max abs diff: " + "; ".join(
+                f"{k} {s:.5f}, {d:.3e}" for k, (s, d) in zip(labels, shares))
+            + f"; occupied transformed-source pixels {int((card_panels[2] > 0).sum())}, "
+            f"po2pl pixels {int((card_panels[3] > 0).sum())} on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
@@ -2161,11 +2455,12 @@ def main() -> None:
         f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
-    builds = cuda_build.build_all(["placement", "window_match", "nn_search"])
-    say(f"build: {time.perf_counter() - t0:.2f} s for all three, one nvcc each started "
-        f"together ({' '.join(cuda_build.NVCC_FLAGS)})")
-    for lib, (log, seconds) in builds.items():
-        say(f"build {lib}: {seconds:.2f} s{'' if log else ' (already built)'}")
+    builds = cuda_build.build_all(["placement", "window_match", "nn_search", "delora_io"])
+    say(f"build: {time.perf_counter() - t0:.2f} s for all four, one compiler each started "
+        f"together (nvcc {' '.join(cuda_build.NVCC_FLAGS)}; the host IO library "
+        f"{cuda_build.host_compiler()} {' '.join(cuda_build.HOST_FLAGS)})")
+    for lib, (log, seconds, built) in builds.items():
+        say(f"build {lib}: {seconds:.2f} s{'' if built else ' (already built)'}")
         for line in log.strip().splitlines():
             say(f"  {lib}: {line.strip()}")
 
@@ -2238,6 +2533,10 @@ def main() -> None:
     # Phase 10: augmentation, the cached-target feed, projective
     # correspondence, the raw feed at 64x1024, remat and fused_adam.
     run_new_paths(drive_scans, card)
+
+    # Phase 11: config files, the synthetic drive, the C++ batcher, profiling,
+    # the .pth export and serving from it, the training panels.
+    run_sixth_slice(card)
 
     def row(name_, source, replaces, err, t):
         by_path = {path: counts[name_] for path, counts in PATH_LAUNCHES.items()

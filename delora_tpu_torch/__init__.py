@@ -10,9 +10,13 @@ the training step of the main path, the quality recipe and brute
 correspondence (``training/step.py``); the trainer, from in-memory scans or
 from disk with checkpoints, resume and evaluation
 (``training/trainer.py::Trainer``); preprocessing (``data/preprocess.py``),
-the scan-pair dataset (``data/dataset.py``) and the ``Tester``
-(``training/tester.py``); the command line ``python -m delora_tpu_torch.cli
-preprocess|train|test|serve``.
+the scan-pair dataset (``data/dataset.py``, with the C++ pair batcher of
+``csrc/delora_io.cpp``) and the ``Tester`` (``training/tester.py``);
+weights in the original DeLORA ``.pth`` layout (``utils/torch_import.py``);
+the synthetic drive writer (``data/synthetic.py``); profiling and plots; the
+command line ``python -m delora_tpu_torch.cli
+preprocess|train|test|serve|export-torch|visualize-normals`` with JSON
+``--config`` files.
 """
 
 from __future__ import annotations

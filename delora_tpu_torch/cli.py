@@ -1,21 +1,26 @@
 """Command line of the port: ``python -m delora_tpu_torch.cli
-preprocess|train|test|serve``.
+preprocess|train|test|serve|export-torch|visualize-normals``.
 
-The port of ``delora_tpu/cli.py``'s ``preprocess``, ``train``, ``test`` and
-``serve``. ``--set KEY=VALUE`` overrides (JSON values, fields of view in
-degrees) go over the defaults, or, with ``--checkpoint``, over the config
-embedded in the checkpoint, which is thus rehydrated and re-overridden
-(reference cli.py:43-53); the mode (training, testing, preprocessing) sets
-each dataset's ``data_identifiers``. Every command runs on CUDA unless given
-``--device cpu``. Not ported: ``--config`` YAML files, ``preprocess
---preview``, ``bench``, ``export-torch`` and ``visualize-normals``.
+The port of ``delora_tpu/cli.py``. ``--config FILE...`` (JSON) replaces the
+packaged defaults with the files, deep-merged in order, as the reference's
+``--config`` replaces its YAML stack (JSON is YAML, so the same files work
+there). ``--set KEY=VALUE`` overrides (JSON values, fields of view in
+degrees) go over the defaults or the files, or, with ``--checkpoint``, over
+the config embedded in the checkpoint, which is thus rehydrated, deep-merged
+and re-overridden (reference cli.py:43-53); the mode (training, testing,
+preprocessing) sets each dataset's ``data_identifiers``. ``preprocess
+--preview`` renders the first scan's range and normal images and stops;
+``export-torch`` writes a trainer checkpoint's live weights in the original
+DeLORA ``.pth`` layout (reference cli.py:105-135); ``visualize-normals``
+renders a preprocessed scan's normals. Every command runs on CUDA unless
+given ``--device cpu``. Not ported: ``bench``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from delora_tpu_torch.config import default_config
 
@@ -41,16 +46,18 @@ def _build_config(args, mode: str) -> Dict[str, Any]:
     if args.checkpoint:
         overrides["checkpoint"] = args.checkpoint
         base = CheckpointManager.embedded_config(args.checkpoint)
-    return default_config(overrides, base=base, mode=mode)
+    return default_config(overrides, base=base, mode=mode, files=getattr(args, "config", None))
 
 
-def serve_config(checkpoint: Optional[str], overrides: Dict[str, Any]) -> Dict[str, Any]:
+def serve_config(checkpoint: Optional[str], overrides: Dict[str, Any],
+                 files: Optional[List[str]] = None) -> Dict[str, Any]:
     """The served config: ``overrides`` (fields of view in degrees) over the
-    checkpoint's embedded config (already in radians), else over the defaults."""
+    checkpoint's embedded config (already in radians), else over the config
+    files or the defaults."""
     from delora_tpu_torch.serving.stream import load_serving_checkpoint
 
     base = load_serving_checkpoint(checkpoint)[0] if checkpoint else None
-    return default_config(overrides, base=base)
+    return default_config(overrides, base=base, files=files)
 
 
 def cmd_preprocess(args):
@@ -59,6 +66,9 @@ def cmd_preprocess(args):
     config = _build_config(args, "preprocessing")
     pre = Preprocessor(config, device=args.device)
     for dataset in config["datasets"]:
+        if args.preview:
+            pre.preview(dataset)
+            continue
         n = pre.run_dataset(dataset, max_scans=args.max_scans)
         print(f"[preprocess] {dataset}: {n} scans written", flush=True)
     return pre
@@ -85,10 +95,35 @@ def cmd_test(args):
     return results
 
 
+def cmd_export_torch(args):
+    """A trainer checkpoint -> its live weights (``state["model"]``, not the
+    EMA's, as the reference exports ``state.params``), embedded config,
+    epoch and loss in the DeLORA ``.pth`` layout at ``--out``."""
+    from delora_tpu_torch.training.checkpoint import load_checkpoint
+    from delora_tpu_torch.utils.torch_import import save_reference_checkpoint
+
+    if not args.checkpoint:
+        raise SystemExit("--checkpoint is required")
+    config = _build_config(args, "testing")
+    payload = load_checkpoint(args.checkpoint)
+    meta = payload["meta"]
+    save_reference_checkpoint(args.out, payload["state"]["model"],
+                              config=meta.get("parameters", config),
+                              epoch=int(meta.get("epoch", 0)), loss=float(meta.get("loss", 0.0)))
+    print(f"[export-torch] wrote {args.out}", flush=True)
+    return args.out
+
+
+def cmd_visualize_normals(args):
+    from delora_tpu_torch.utils.visualize_normals import render
+
+    return render(args.sequence_dir, args.scan, args.out)
+
+
 def cmd_serve(args):
     from delora_tpu_torch.serving.stream import StreamingOdometry
 
-    config = serve_config(args.checkpoint, _parse_overrides(args.overrides))
+    config = serve_config(args.checkpoint, _parse_overrides(args.overrides), args.config)
     engine = StreamingOdometry(config, checkpoint=args.checkpoint,
                                device=args.device, dataset=args.dataset)
     engine.serve_stdin()
@@ -96,12 +131,15 @@ def cmd_serve(args):
 
 def main(argv: Optional[list] = None):
     """Parse ``argv`` and run the command -> what the command returns (the
-    Preprocessor, the Trainer, the test results)."""
+    Preprocessor, the Trainer, the test results, the written path)."""
     parser = argparse.ArgumentParser(prog="python -m delora_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
 
     def command(name, fn, help_, checkpoint_help):
         p = sub.add_parser(name, help=help_)
+        p.add_argument("--config", nargs="*", default=None, metavar="FILE",
+                       help="JSON config files, merged in order (default: the packaged "
+                            "defaults)")
         p.add_argument("--set", dest="overrides", nargs="*", default=[], metavar="KEY=VALUE",
                        help="config overrides, e.g. --set batch_size=8 "
                             "'kitti={\"data_path\": \"...\"}'")
@@ -113,6 +151,8 @@ def main(argv: Optional[list] = None):
     p = command("preprocess", cmd_preprocess, "raw scans -> deduplicated points + normals",
                 "checkpoint whose embedded config is the base")
     p.add_argument("--max-scans", type=int, default=None)
+    p.add_argument("--preview", action="store_true",
+                   help="render the first scan's range and normal images and stop")
     p = command("train", cmd_train, "self-supervised training",
                 "checkpoint to resume from (its embedded config is the base)")
     p.add_argument("--run-name", default=None)
@@ -123,6 +163,16 @@ def main(argv: Optional[list] = None):
     p = command("serve", cmd_serve, "streaming odometry, JSONL over stdin/stdout",
                 "trainer or serving checkpoint (its embedded config is the base)")
     p.add_argument("--dataset", default="kitti")
+    p = command("export-torch", cmd_export_torch,
+                "trainer checkpoint -> the original DeLORA .pth layout",
+                "trainer checkpoint to export (its live weights)")
+    p.add_argument("--out", required=True, help="output .pth path")
+    p = sub.add_parser("visualize-normals",
+                       help="render a preprocessed scan's normals (3D quiver)")
+    p.add_argument("sequence_dir", help="preprocessed sequence dir (holds scans/ and normals/)")
+    p.add_argument("--scan", type=int, default=0)
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_visualize_normals)
     args = parser.parse_args(argv)
     return args.fn(args)
 

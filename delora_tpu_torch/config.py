@@ -1,26 +1,37 @@
-"""The settings of the ported slices, as Python data.
+"""The settings of the port, as Python data or JSON files.
 
 The same flat dict that ``delora_tpu.config.load_config()`` builds from its
-YAML stack, cut to the keys the ported paths read: the KITTI sensor and
-dataset spec, the normal-estimation keys, the deployment keys of the offline
-pipeline (paths, checkpoints, evaluation, the feed), the model keys, and the
-training, loss and correspondence keys. Values are those of
+YAML stack. Without files it starts from the port's defaults, cut to the keys
+the ported paths read: the KITTI sensor and dataset spec, the
+normal-estimation keys, the deployment keys of the offline pipeline (paths,
+checkpoints, evaluation, the feed, profiling, images), the model keys, and
+the training, loss and correspondence keys. Values are those of
 ``delora_tpu/configs/*.yaml``; fields of view are written in degrees and
 converted to radians once, by the same formula, so the floats are identical.
 Keys the YAML leaves out or commented out (``lr_decay_steps``,
 ``lr_min_ratio``, ``seed``, ``eval_batch_size``, ``prewarm_cache``,
-``prewarm_threads``, ``training_run_name``, ``auto_resume``, ``checkpoint``)
-are read with the reference's defaults where they are used. Each dataset's
-``data_identifiers`` follow the mode (training, testing or preprocessing) as
-in the reference's ``load_config``.
+``prewarm_threads``, ``training_run_name``, ``auto_resume``, ``checkpoint``,
+``profile_epochs``, ``visualize_every_epochs``) are read with the
+reference's defaults where they are used. Each dataset's ``data_identifiers``
+follow the mode (training, testing or preprocessing) as in the reference's
+``load_config``.
+
+Config files (``files``, the command line's ``--config``) follow the
+reference's ``load_config(config_files=...)``: they replace the defaults
+rather than merge over them, are deep-merged in order, the overrides go over
+them, and the fields of view of the result (the horizontal one and those of
+the datasets it lists) are converted once, unless it says
+``_fov_in_radians``. The files are JSON, which is also YAML, so the same file
+works with the reference's ``delora --config``, provided every float has a
+dot: YAML 1.1 reads JSON's ``1e-05`` as a string. ``write_config_file``
+writes such floats as ``1.0e-05``.
 
 Settings whose code is not ported yet raise in validation rather than run
-silently: rosbag datasets, the native C++ batcher (``native_io: true``) and
-``profile_epochs``. Soft matching, reverse po2pl, the parameter EMA,
-dropout, augmentation, the image, projective and brute matchers, the three
-feeds, ``remat`` and ``fused_adam`` run. ``remat`` and ``fused_adam`` are
-not in the reference's YAML (``remat`` is commented out there) and are read
-with ``False`` as their default.
+silently: rosbag datasets. Everything else of the reference's training keys
+runs, including ``native_io`` (the C++ pair batcher of
+``csrc/delora_io.cpp``), ``profile_epochs`` and ``visualize_images``.
+``remat`` and ``fused_adam`` are not in the reference's YAML (``remat`` is
+commented out there) and are read with ``False`` as their default.
 
 ``use_pallas_nn`` is carried for parity and read by nothing: the reference
 picks between two routes to the same exact 1-NN with it (its Pallas kernel or
@@ -31,8 +42,10 @@ card whatever it says.
 from __future__ import annotations
 
 import copy
+import json
 import math
-from typing import Any, Dict, Mapping, Optional
+import re
+from typing import Any, Dict, Iterable, Mapping, Optional
 
 _DEFAULTS: Dict[str, Any] = {
     # datasets.yaml
@@ -142,18 +155,72 @@ def _fov_to_radians(settings: Dict[str, Any]) -> Dict[str, Any]:
 _MODES = ("training", "testing", "preprocessing")
 
 
+def default_settings() -> Dict[str, Any]:
+    """The port's defaults in the YAML's units (fields of view in degrees):
+    what a config file written from them holds."""
+    return copy.deepcopy(_DEFAULTS)
+
+
+def write_config_file(path: str, settings: Mapping[str, Any]) -> None:
+    """``settings`` as a JSON config file that YAML 1.1 reads the same: a
+    float that JSON writes without a dot (``1e-05``) gets one (``1.0e-05``)."""
+    floats = []
+
+    def mark(value):
+        if isinstance(value, dict):
+            return {k: mark(v) for k, v in value.items()}
+        if isinstance(value, list):
+            return [mark(v) for v in value]
+        text = repr(value) if isinstance(value, float) else ""
+        if "e" in text and "." not in text:
+            floats.append(text.replace("e", ".0e"))
+            return f"\0{len(floats) - 1}\0"
+        return value
+
+    text = json.dumps(mark(dict(settings)), indent=1)
+    text = re.sub(r'"\\u0000(\d+)\\u0000"', lambda m: floats[int(m.group(1))], text)
+    with open(path, "w") as f:
+        f.write(text + "\n")
+
+
+def _listed_fov_to_radians(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's one conversion of a loaded stack: the horizontal field
+    of view and the vertical one of each dataset in ``datasets``, unless the
+    config is already in radians."""
+    if not config.get("_fov_in_radians", False):
+        config["horizontal_field_of_view"] = _deg2rad_list(config["horizontal_field_of_view"])
+        for dataset in config.get("datasets", []):
+            spec = config[dataset]
+            spec["vertical_field_of_view"] = _deg2rad_list(spec["vertical_field_of_view"])
+    return config
+
+
 def default_config(
     overrides: Optional[Mapping[str, Any]] = None,
     base: Optional[Mapping[str, Any]] = None,
     mode: Optional[str] = None,
+    files: Optional[Iterable[str]] = None,
 ) -> Dict[str, Any]:
-    """The slice's flat config dict. ``overrides`` are in the YAML's units
-    (fields of view in degrees) and are deep-merged over ``base``, a dict this
-    function returned before (for example a checkpoint's), else over the
-    defaults. ``mode`` (else the config's own) sets each dataset's
+    """The flat config dict. ``overrides`` are in the YAML's units (fields of
+    view in degrees) and are deep-merged over ``base``, a dict this function
+    returned before (for example a checkpoint's), else over the defaults.
+    ``files`` (JSON) replace the defaults; without ``base`` the overrides are
+    merged into them before the one conversion, as the reference's
+    ``load_config`` does; with ``base`` (rehydration) the converted files lie
+    under it. ``mode`` (else the config's own) sets each dataset's
     ``data_identifiers``: the training identifiers, the testing ones, or for
     preprocessing the sorted union of both (reference config.py:83-97)."""
-    config = _fov_to_radians(copy.deepcopy(_DEFAULTS))
+    if files is None:
+        config = _fov_to_radians(copy.deepcopy(_DEFAULTS))
+    else:
+        config = {}
+        for path in files:
+            with open(path) as f:
+                _deep_merge(config, json.load(f) or {})
+        if base is None and overrides:
+            _deep_merge(config, overrides)
+            overrides = None
+        config = _listed_fov_to_radians(config)
     if base is not None:
         # A base from an older slice may lack the keys added since.
         _deep_merge(config, base)
@@ -162,13 +229,14 @@ def default_config(
     config["_fov_in_radians"] = True
     if mode is not None:
         config["mode"] = mode
-    if config["mode"] not in _MODES:
-        raise ValueError(f"Unknown mode: {config['mode']!r}")
+    mode_now = config.get("mode", "training")
+    if mode_now not in _MODES:
+        raise ValueError(f"Unknown mode: {mode_now!r}")
     for dataset in config["datasets"]:
         spec = config.get(dataset, {})
-        if config["mode"] == "training":
+        if mode_now == "training":
             spec["data_identifiers"] = list(spec.get("training_identifiers", []))
-        elif config["mode"] == "testing":
+        elif mode_now == "testing":
             spec["data_identifiers"] = list(spec.get("testing_identifiers", []))
         else:
             spec["data_identifiers"] = sorted(set(spec.get("training_identifiers", []))
@@ -206,14 +274,10 @@ def validate(config: Mapping[str, Any]) -> None:
         kind = config.get(dataset, {}).get("dataset_type", "kitti")
         if kind != "kitti":
             raise NotImplementedError(
-                f"dataset_type {kind!r} of {dataset!r} is not ported; the port reads KITTI "
-                f"velodyne scans")
-    if config.get("native_io", "auto") not in ("auto", False):
-        raise NotImplementedError(
-            f"native_io={config['native_io']!r} asks for the native C++ batcher, which is not "
-            f"ported; the port's loader is the Python producer thread (native_io: auto)")
-    if config.get("profile_epochs"):
-        raise NotImplementedError("profile_epochs is not ported")
+                f"dataset_type {kind!r} of {dataset!r} is not ported yet: rosbag datasets come "
+                f"with the port's ROS slice, the next one; the port reads KITTI velodyne scans")
+    if config.get("native_io", "auto") not in ("auto", True, False):
+        raise ValueError(f"native_io must be auto, true or false, got {config['native_io']!r}")
     if config["soft_match_sigma"] < 0.0 or config["lambda_reverse_po2pl"] < 0.0:
         raise ValueError("soft_match_sigma and lambda_reverse_po2pl must be >= 0")
     if not 0.0 <= config["ema_decay"] < 1.0:

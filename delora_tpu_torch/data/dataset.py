@@ -17,10 +17,17 @@ Python producer of its ``BatchLoader``:
 - an epoch's pair order is ``np.random.default_rng(seed + epoch)``'s
   permutation, truncated to whole batches; a producer thread makes the
   batches ``prefetch`` ahead, and they reach the device from pinned memory
-  with ``non_blocking`` copies.
+  with ``non_blocking`` copies;
+- the raw feed's batches may come instead from the C++ threaded pair
+  batcher (``csrc/delora_io.cpp`` through ``data/native_io.py``), which reads,
+  truncates and pads the scans in its own threads without the GIL, the
+  batches requested ``prefetch`` ahead and delivered in request order
+  (reference dataset.py:308-345). ``native`` True always takes it (and
+  raises if the library cannot be built), "auto" takes it when the RAM cache
+  is off, False never. Its batches are bit for bit the Python producer's.
 
 One process reads the whole dataset: the reference's per-host sharding of
-the permutation and its native C++ batcher are not ported.
+the permutation is not ported.
 """
 
 from __future__ import annotations
@@ -90,7 +97,8 @@ class ScanPairDataset:
         self._proj_spec = ProjectionSpec.from_config(config, dataset)
         self._artifacts: Dict[Tuple[int, int], ScanArtifacts] = {}
         self._cache: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray]] = {}
-        if bool(config.get("store_dataset_in_RAM", True)):
+        self.cache_in_ram = bool(config.get("store_dataset_in_RAM", True))
+        if self.cache_in_ram:
             for key in self.scan_keys():
                 self._cache[key] = self._load_ragged(*key)
 
@@ -190,18 +198,31 @@ class BatchLoader:
     """Shuffled, epoch-based whole batches of a :class:`ScanPairDataset` with a
     background producer: ``feed`` "raw" gives :class:`ScanPairBatch`,
     "cached" :class:`CachedTargetBatch` and "full" :class:`FullyCachedBatch`,
-    on ``device``."""
+    on ``device``. ``native`` (True, "auto" or False) chooses the raw feed's
+    C++ batcher (see the module docstring); ``use_native`` says whether it
+    was taken."""
 
     def __init__(self, dataset: ScanPairDataset, batch_size: int, *, device: torch.device,
-                 seed: int = 0, prefetch: int = 2, feed: str = "raw"):
+                 seed: int = 0, prefetch: int = 2, feed: str = "raw",
+                 native: Union[bool, str] = "auto"):
         if feed not in ("raw", "cached", "full"):
             raise ValueError(f"unknown feed mode {feed!r}")
+        if native not in ("auto", True, False):
+            raise ValueError(f"native must be 'auto', True or False, got {native!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.seed = seed
         self.prefetch = prefetch
         self.feed = feed
+        self._native_loader = None
+        self._pair_first_flat = None
+        self.use_native = feed == "raw" and (
+            native is True or (native == "auto" and not dataset.cache_in_ram))
+        if self.use_native:
+            from delora_tpu_torch.data.native_io import library
+
+            library()                       # built now; raises if it cannot be
 
     def global_epoch_indices(self, epoch: int) -> np.ndarray:
         """The epoch's pair order (see :func:`epoch_permutation`)."""
@@ -213,6 +234,9 @@ class BatchLoader:
         error in the producer is raised to the caller."""
         indices = self.global_epoch_indices(epoch)
         n_batches = len(indices) // self.batch_size
+        if self.use_native:
+            yield from self._native_epoch(indices, n_batches)
+            return
         make = getattr(self.dataset, {"raw": "make_batch", "cached": "make_cached_batch",
                                       "full": "make_fullcached_batch"}[self.feed])
         pin = self.device.type == "cuda"
@@ -257,3 +281,40 @@ class BatchLoader:
         finally:
             stop.set()
             thread.join(timeout=10.0)
+
+    def _native_epoch(self, indices: np.ndarray, n_batches: int) -> Iterator[ScanPairBatch]:
+        """The raw feed's epoch through the C++ pair batcher: batches are
+        requested ``prefetch`` ahead and come back in request order; an
+        abandoned epoch takes back what it requested, so the next epoch
+        starts clean."""
+        from delora_tpu_torch.data.native_io import NativePairLoader
+
+        ds = self.dataset
+        if self._native_loader is None:
+            offsets = np.cumsum([0] + [len(s) for s in ds.scan_files[:-1]])
+            self._pair_first_flat = np.asarray([offsets[si] + k for si, k in ds.pairs],
+                                               np.int32)
+            self._native_loader = NativePairLoader(
+                [p for seq in ds.scan_files for p in seq],
+                [p for seq in ds.normal_files for p in seq],
+                ds.max_points, n_threads=max(2, self.prefetch))
+        loader, flat, B = self._native_loader, self._pair_first_flat, self.batch_size
+        requested = delivered = 0
+
+        def request() -> None:
+            nonlocal requested
+            loader.request(flat[indices[requested * B:(requested + 1) * B]])
+            requested += 1
+
+        try:
+            while requested < min(max(1, self.prefetch), n_batches):
+                request()
+            while delivered < n_batches:
+                arrays = loader.next_batch(B)
+                delivered += 1
+                if requested < n_batches:
+                    request()
+                yield ScanPairBatch(*(torch.from_numpy(a).to(self.device) for a in arrays))
+        finally:
+            for _ in range(requested - delivered):
+                loader.next_batch(B)

@@ -11,7 +11,8 @@ project_scan_batch``), then the neighbourhood-PCA normals
 
 The scan file holds the points that won their pixel, in their original
 order; the normals are row-aligned with them, zero where no normal exists.
-The reference's single-scan ``preview`` (it needs matplotlib) is not ported.
+``preview`` renders the first scan's range and normal images instead (the
+reference's single-image preprocessing preview; it needs matplotlib).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from delora_tpu_torch import resolve_device
 from delora_tpu_torch.data.kitti import KittiSequenceReader
-from delora_tpu_torch.ops.normals import NormalsSpec, normals_for_points
+from delora_tpu_torch.ops.normals import NormalsSpec, compute_normal_image, normals_for_points
 from delora_tpu_torch.ops.projection import ProjectionSpec, project_scan_batch
 
 
@@ -64,6 +65,42 @@ class Preprocessor:
                                      proj.survivor[0], nspec)
         survivor = proj.survivor[0].cpu().numpy()
         return points[survivor], normals.cpu().numpy()[survivor], len(xyz) - n
+
+    def preview_images(self, dataset: str, sequence: Optional[int] = None):
+        """The first scan of ``sequence`` (else of the first identifier),
+        padded to ``max_points`` and projected at the preprocessing width
+        (one exact placement on the card) -> (range image [H, W], normal
+        image [H, W, 3]), as numpy arrays (reference preprocess.py:78-107)."""
+        spec = self.config[dataset]
+        pspec = ProjectionSpec.from_config(self.config, dataset, preprocessing=True)
+        nspec = NormalsSpec.from_config(self.config, dataset)
+        seq = sequence if sequence is not None else spec["data_identifiers"][0]
+        raw = KittiSequenceReader(spec["data_path"], seq)[0][:, :3].astype(np.float32)
+        capacity = int(spec["max_points"])
+        n = min(len(raw), capacity)
+        points = torch.zeros(capacity, 3, device=self.device)
+        points[:n] = torch.from_numpy(raw[:n]).to(self.device)
+        valid = torch.arange(capacity, device=self.device) < n
+        image = project_scan_batch(points[None], valid[None], pspec).image[0]
+        normals = compute_normal_image(image[..., :3], nspec)
+        return image[..., 3].cpu().numpy(), normals.cpu().numpy()
+
+    def preview(self, dataset: str, sequence: Optional[int] = None,
+                out_path: Optional[str] = None) -> str:
+        """Render :meth:`preview_images` as four stacked panels (range,
+        normal x, y, z) into ``out_path`` (else
+        ``<log_dir>/preprocess_preview.png``) -> the path."""
+        from delora_tpu_torch.utils.plotting import plot_range_image_grid
+
+        if out_path is None:
+            out_path = os.path.join(self.config.get("log_dir", "./runs"),
+                                    "preprocess_preview.png")
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        ranges, normals = self.preview_images(dataset, sequence)
+        plot_range_image_grid([ranges, normals[..., 0], normals[..., 1], normals[..., 2]],
+                              ["range", "normal x", "normal y", "normal z"], out_path)
+        print(f"[preprocess] preview -> {out_path}", flush=True)
+        return out_path
 
     def run_dataset(self, dataset: str, max_scans: Optional[int] = None) -> int:
         """Preprocess the dataset's ``data_identifiers``, at most

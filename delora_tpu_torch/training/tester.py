@@ -9,8 +9,10 @@ poses, and ``poses_<dataset>_<seq>.txt`` (KITTI rows),
 artifacts. Where ground truth exists the KITTI t_rel / r_rel over 100..800 m
 subsequences are reported, or the per-step relative pose error for a shorter
 trajectory. With ``inference_only`` false the mean losses over the sequence
-are evaluated too. The reference's trajectory plots (matplotlib) are not
-ported.
+are evaluated too. At each sequence's end the trajectory is plotted
+(``utils/plotting.py``): its 2D, 3D and elevation maps against the ground
+truth, and with ground truth its relative translation and rotation per axis;
+without matplotlib one line says the plots are skipped.
 """
 
 from __future__ import annotations
@@ -149,7 +151,7 @@ class Tester:
                                   f"r={rpe_r:.4f} deg/step (seq < 100 m)", flush=True)
                             self.logger.log_metrics({f"rpe_t_{tag}": rpe_t,
                                                      f"rpe_r_{tag}": rpe_r}, step=0)
-                print("[test] plotting skipped: the trajectory plots are not ported", flush=True)
+                self.plot_sequence(tag, rel, poses, gt)
 
                 if not self.config.get("inference_only", True):
                     losses = self.evaluate_losses(dataset, seq_pos)
@@ -159,6 +161,23 @@ class Tester:
                                             step=0)
                 results[dataset][seq_id] = metrics
         return results
+
+    def plot_sequence(self, tag: str, rel: np.ndarray, poses: np.ndarray,
+                      gt: Optional[np.ndarray]) -> None:
+        """The sequence's trajectory plots into the run's artifacts:
+        ``map_<tag>_2d.png``, ``map_<tag>_y.png``, ``map_<tag>_3d.png`` and,
+        with ground truth, ``trans_rot_<tag>.png``."""
+        try:
+            from delora_tpu_torch.utils import plotting
+        except ImportError as e:
+            print(f"[test] plotting skipped: {e}", flush=True)
+            return
+        path = self.logger.artifact_path
+        plotting.plot_trajectory(poses, gt, path(f"map_{tag}_2d.png"), title=tag)
+        plotting.plot_elevation(poses, gt, path(f"map_{tag}_y.png"))
+        plotting.plot_trajectory_3d(poses, gt, path(f"map_{tag}_3d.png"), title=tag)
+        if gt is not None:
+            plotting.plot_translation_rotation_errors(rel, gt, path(f"trans_rot_{tag}.png"))
 
     @torch.no_grad()
     def evaluate_losses(self, dataset: str, sequence_index: int) -> Dict[str, float]:

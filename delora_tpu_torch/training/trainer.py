@@ -48,10 +48,19 @@ model, optimizer, schedule, EMA and the dropout and augmentation generators
 come back, so a resumed run takes the steps of an uninterrupted one; it
 starts after the saved epoch, unsupervised.
 
+The trainer traces the epochs of ``profile_epochs`` (``utils/profiling.py``:
+each step's ``batch`` and ``train_step`` regions, with the device's kernels
+on the card) into the run's ``profile`` artifact directory
+(trainer.py:572-579). From disk, with ``visualize_images``, it renders the
+six-panel diagnostic of :func:`training_panels` every
+``visualize_every_epochs`` epochs (5 by default) into
+``images_<dataset>_<epoch>.png`` (trainer.py:359-459, :597-609). The
+plotting module is imported first: without matplotlib one line says the
+images are skipped and nothing is computed.
+
 A plain Python loop takes the steps: the reference's ``lax.scan`` over
 ``steps_per_dispatch`` steps only amortizes the TPU's dispatch round trip, so
-the port does not read that key. Not ported: training images (the reference's
-six-panel plots need matplotlib) and ``profile_epochs``.
+the port does not read that key.
 """
 
 from __future__ import annotations
@@ -63,7 +72,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from delora_tpu_torch import resolve_device
+from delora_tpu_torch import resolve_device, se3
 from delora_tpu_torch.config import training_feed, validate
 from delora_tpu_torch.data.dataset import (
     BatchLoader,
@@ -72,7 +81,12 @@ from delora_tpu_torch.data.dataset import (
     pad_scan,
 )
 from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
-from delora_tpu_torch.ops.projection import ProjectionSpec
+from delora_tpu_torch.ops.correspondence import image_space_correspondence_batch
+from delora_tpu_torch.ops.projection import (
+    ProjectionSpec,
+    project_compact_exact_batch,
+    project_image_packed_batch,
+)
 from delora_tpu_torch.ops.projection_host import ScanArtifacts, scan_artifacts_np
 from delora_tpu_torch.training.checkpoint import CheckpointManager
 from delora_tpu_torch.training.state import (
@@ -86,9 +100,11 @@ from delora_tpu_torch.training.step import (
     FullyCachedBatch,
     ScanPairBatch,
     StepConfig,
+    forward_pose,
     train_step,
 )
 from delora_tpu_torch.utils.metrics import MetricsLogger
+from delora_tpu_torch.utils.profiling import annotate, trace
 
 WARMUP_LOSS = 1e-2
 
@@ -103,6 +119,57 @@ def padded_scan(points: np.ndarray, normals: np.ndarray, max_points: int
     n = min(len(points), max_points)
     return pad_scan(np.asarray(points, np.float32)[:n], np.asarray(normals, np.float32)[:n],
                     max_points)
+
+
+PANEL_FIELDS = ("points_1", "valid_1", "normals_1", "points_2", "valid_2", "normals_2")
+
+
+@torch.no_grad()
+def training_panels(model: torch.nn.Module, pair, spec: ProjectionSpec,
+                    window: Tuple[int, int], device: torch.device
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The six panels of the training diagnostic at one probe pair, from the
+    model's current weights (dropout off), on ``device``, as the reference's
+    ``Trainer.log_images`` computes them (trainer.py:359-459):
+
+    - the target's and the source's range images ([H, W]): both scans
+      projected under the exact rule, their normals riding along;
+    - the range of the network-transformed source ([H, W]): the source's
+      winners warped by the predicted pose and projected again (packed rule);
+    - the per-pixel po2pl loss on the transformed source ([H, W]): the
+      squared point-to-plane residual of each hard window match whose target
+      has a normal, else 0;
+    - the target's and the transformed source's normal maps ([H, W, 3]).
+
+    ``pair`` holds a padded pair's ``points_1``, ``valid_1``, ``normals_1``,
+    ``points_2``, ``valid_2``, ``normals_2`` (``ScanPairDataset.get_pair``).
+    On the card: two exact placements, one packed and one matcher launch."""
+    p1, v1, n1, p2, v2, n2 = (torch.as_tensor(np.asarray(pair[k])).to(device)
+                              for k in PANEL_FIELDS)
+    tproj = project_compact_exact_batch(p1[None], v1[None], spec,
+                                        values=torch.cat([p1, n1], -1)[None])
+    sproj = project_compact_exact_batch(p2[None], v2[None], spec,
+                                        values=torch.cat([p2, n2], -1)[None])
+    timg, simg = tproj.image[0], sproj.image[0]
+    image_1 = torch.cat([timg[..., 0:3], timg[..., 6:7]], -1)
+    image_2 = torch.cat([simg[..., 0:3], simg[..., 6:7]], -1)
+    nimg_t = timg[..., 3:6]
+    T = forward_pose(model, image_1[None], image_2[None], deterministic=True)[0]
+    m = sproj.comp_mask[0, :, None]
+    w_pts = se3.transform_points(T, sproj.comp_vals[0, :, 0:3] * m)
+    w_nrm = se3.rotate_points(T, sproj.comp_vals[0, :, 3:6] * m)
+    wimg = project_image_packed_batch(w_pts[None], sproj.comp_mask, spec,
+                                      values=torch.cat([w_pts, w_nrm], -1)[None])[0]
+    H, W = spec.height, spec.width
+    w_xyz = wimg[..., 0:3].reshape(H * W, 3)
+    occ = wimg[..., 6].reshape(H * W) > 0.0
+    corr = image_space_correspondence_batch(w_xyz[None], occ[None], image_1[None],
+                                            nimg_t[None], spec, window)
+    nt = corr.target_normals[0]
+    resid = ((w_xyz - corr.target_points[0]) * nt).sum(-1)
+    po2pl = torch.where(corr.valid[0] & (nt != 0.0).any(-1), resid * resid, 0.0)
+    return (image_1[..., 3], image_2[..., 3], wimg[..., 6], po2pl.reshape(H, W), nimg_t,
+            wimg[..., 3:6])
 
 
 class PairFeed(NamedTuple):
@@ -161,6 +228,7 @@ class Trainer:
             seed = int(torch.randint(0, 2**62, (), generator=generator))
             self.augment_generator = torch.Generator(self.device).manual_seed(seed)
 
+        self.pair_datasets: Dict[str, ScanPairDataset] = {}
         if sequences is not None:
             self.feeds = {dataset: self._memory_feed(sequences, dataset)}
             self.ckpt = self.logger = None
@@ -218,7 +286,8 @@ class Trainer:
 
     def _disk_feeds(self) -> Dict[str, PairFeed]:
         config = self.config
-        data = {name: ScanPairDataset(config, name) for name in self.datasets}
+        data = self.pair_datasets = {name: ScanPairDataset(config, name)
+                                     for name in self.datasets}
         for name, ds in data.items():
             if len(ds) < self.batch_size:
                 raise ValueError(f"{name}: {len(ds)} scan pairs make no batch of "
@@ -249,7 +318,8 @@ class Trainer:
             else:
                 feeds[name] = PairFeed(spec, loader=BatchLoader(
                     ds, self.batch_size, device=self.device, seed=self.seed,
-                    prefetch=max(1, int(config.get("prefetch_depth", 2))), feed=self.feed))
+                    prefetch=max(1, int(config.get("prefetch_depth", 2))), feed=self.feed,
+                    native=config.get("native_io", "auto")))
         if resident:
             print(f"[trainer] {total} scans resident in device memory "
                   f"({time.time() - t0:.1f}s one-time transfer)", flush=True)
@@ -310,7 +380,14 @@ class Trainer:
         per_step = []
         for dataset in self.datasets:
             cfg = StepConfig.from_config(self.config, dataset, supervised=self.supervised)
-            per_step.extend(self.step(batch, cfg) for batch in self.batches(epoch, dataset))
+            batches = self.batches(epoch, dataset)
+            while True:
+                with annotate("batch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                with annotate("train_step"):
+                    per_step.append(self.step(batch, cfg))
         if not per_step:
             raise RuntimeError("No batches produced: dataset smaller than a batch?")
         keys = list(per_step[0])
@@ -329,12 +406,14 @@ class Trainer:
         From disk, each epoch is logged, checkpointed and evaluated on the
         config's cadence."""
         epochs = int(epochs if epochs is not None else self.config["epochs"])
-        if self.logger is not None and self.config.get("visualize_images", True):
-            print("[trainer] training images are not ported yet; visualize_images is ignored",
-                  flush=True)
+        profile_epochs = set(self.config.get("profile_epochs") or [])
         history = []
         for epoch in range(self.start_epoch, epochs):
-            metrics = self.train_epoch(epoch)
+            if epoch in profile_epochs:
+                with trace(self.artifact_path("profile"), f"epoch_{epoch:05d}"):
+                    metrics = self.train_epoch(epoch)
+            else:
+                metrics = self.train_epoch(epoch)
             metrics["supervised"] = float(self.supervised)
             history.append(metrics)
             print(f"[epoch {epoch:05d}] loss={metrics['loss']:.6f} "
@@ -347,6 +426,10 @@ class Trainer:
                 every = max(int(self.config.get("checkpoint_every_epochs", 1)), 1)
                 if epoch % every == 0 or epoch == epochs - 1:
                     self.ckpt.save(self.state_dict(), epoch, metrics["loss"], self.config)
+                viz_every = max(int(self.config.get("visualize_every_epochs", 5)), 1)
+                if self.config.get("visualize_images", True) and epoch % viz_every == 0:
+                    for name in self.datasets:
+                        self.log_images(epoch, name)
                 eval_every = int(self.config.get("eval_every_epochs", 0))
                 if eval_every and not self.supervised and (
                         (epoch + 1) % eval_every == 0 or epoch == epochs - 1):
@@ -355,6 +438,42 @@ class Trainer:
                 self.supervised = False
                 print("[trainer] warmup converged: switching to unsupervised", flush=True)
         return history
+
+    # ---- artifacts --------------------------------------------------------
+
+    def artifact_path(self, name: str) -> str:
+        """``name`` in the run's artifact directory,
+        ``<log_dir>/<experiment>/<run>/artifacts`` (also for a trainer over
+        in-memory scans, which keeps no log)."""
+        if self.logger is not None:
+            return self.logger.artifact_path(name)
+        return os.path.join(self.config.get("log_dir", "./runs"),
+                            self.config.get("experiment", "default"), self.run_name,
+                            "artifacts", name)
+
+    def log_images(self, epoch: int, dataset: str) -> Optional[str]:
+        """Render :func:`training_panels` of the dataset's first pair into
+        ``images_<dataset>_<epoch>.png`` -> its path; without matplotlib,
+        one line and None (nothing is computed)."""
+        try:
+            from delora_tpu_torch.utils.plotting import plot_training_panels
+        except ImportError as e:
+            print(f"[trainer] image logging skipped: {e}", flush=True)
+            return None
+        spec = ProjectionSpec.from_config(self.config, dataset)
+        panels = training_panels(self.model, self.pair_datasets[dataset].get_pair(0), spec,
+                                 tuple(self.config["projective_window"]), self.device)
+        r1, r2, rw, po2pl, nimg_t, nimg_w = (x.float().cpu().numpy() for x in panels)
+        path = self.artifact_path(f"images_{dataset}_{epoch:05d}.png")
+        plot_training_panels([
+            ("Target image at time t", "range", r1),
+            ("Source at time t+1", "range", r2),
+            ("Network transformed source at time t+1", "range", rw),
+            ("Po2Pl loss (on transformed source points)", "loss", po2pl),
+            ("Normal map of target", "normals", nimg_t),
+            ("Normal map of transformed source", "normals", nimg_w),
+        ], path, iteration=epoch)
+        return path
 
     # ---- checkpoints and evaluation ---------------------------------------
 

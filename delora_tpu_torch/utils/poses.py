@@ -24,6 +24,12 @@ TRANSFORM_LIDAR_TO_WORLD = np.array([
 ])
 
 
+def rotmat_to_quat_xyzw_np(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> quaternion (x, y, z, w) by scipy, the convention of
+    ROS's ``tf.transformations.quaternion_from_matrix``."""
+    return Rotation.from_matrix(np.asarray(R)).as_quat()
+
+
 def reorthonormalize_np(T: np.ndarray) -> np.ndarray:
     """Snap the rotation block of a 4x4 transform back onto SO(3) through a
     scipy quaternion round trip."""

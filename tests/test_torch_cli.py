@@ -5,6 +5,7 @@ checkpoint rehydration against ``delora_tpu.cli._build_config``; ``serve
 
 import io
 import json
+import math
 import os
 import types
 
@@ -67,7 +68,12 @@ def test_preprocess_train_test(pipeline, capsys):
         config["log_dir"], config["experiment"], "cli_test", "artifacts", "poses_kitti_00.txt"))
     assert poses.shape == (N_SCANS, 4, 4)
     assert all(check_validity_so3(p[:3, :3], atol=1e-4) for p in poses)
-    assert "plotting skipped" in capsys.readouterr().out
+    # The trajectory plots of the sequence (matplotlib is installed here).
+    artifacts = os.path.join(config["log_dir"], config["experiment"], "cli_test", "artifacts")
+    for name in ("map_kitti_00_2d.png", "map_kitti_00_y.png", "map_kitti_00_3d.png",
+                 "trans_rot_kitti_00.png"):
+        assert os.path.getsize(os.path.join(artifacts, name)) > 0, name
+    assert "plotting skipped" not in capsys.readouterr().out
 
 
 def test_resume_through_the_cli(pipeline):
@@ -165,3 +171,89 @@ def test_commands_run_on_cuda_unless_told(tmp_path):
     for command in ("preprocess", "train"):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([command] + flags(tmp_path)[2:])
+
+
+PACKAGED = ("datasets.yaml", "deployment.yaml", "hyperparameters.yaml",
+            "presets/pod_large_batch.yaml")
+
+
+@pytest.fixture(scope="module")
+def config_files(tmp_path_factory):
+    """The JAX package's packaged YAML stack and its preset, each as YAML and
+    converted to JSON (``write_config_file``: floats with a dot, so YAML 1.1
+    reads the JSON the same) -> (yaml paths, json paths) by name."""
+    import yaml
+
+    from delora_tpu import config as jax_config
+    from delora_tpu_torch.config import write_config_file
+
+    root = tmp_path_factory.mktemp("configs")
+    yamls, jsons = {}, {}
+    for name in PACKAGED:
+        yamls[name] = os.path.join(os.path.dirname(jax_config.__file__), "configs", name)
+        with open(yamls[name]) as f:
+            data = yaml.safe_load(f)
+        jsons[name] = str(root / (os.path.basename(name)[:-5] + ".json"))
+        write_config_file(jsons[name], data)
+        with open(jsons[name]) as f:
+            assert json.load(f) == data
+    return yamls, jsons
+
+
+CONFIG_SETS = ["batch_size=8", 'kitti={"max_points": 4096, "vertical_field_of_view": [-20, 3]}',
+               "horizontal_field_of_view=[-90.0, 90.0]"]
+
+
+@pytest.mark.parametrize("mode", ["training", "testing", "preprocessing"])
+@pytest.mark.parametrize("stack", ["packaged", "packaged+preset"])
+def test_config_files_match_load_config(config_files, mode, stack):
+    """``--config`` JSON files equal the reference's ``load_config`` of the
+    same stack (as YAML, and the same JSON files read as YAML), with ``--set``
+    on top and the fields of view converted once."""
+    yamls, jsons = config_files
+    names = PACKAGED if stack == "packaged+preset" else PACKAGED[:3]
+    args = types.SimpleNamespace(config=[jsons[n] for n in names], overrides=CONFIG_SETS,
+                                 checkpoint=None)
+    port = cli._build_config(args, mode)
+    for files in ([yamls[n] for n in names], [jsons[n] for n in names]):
+        ref = jax_cli._build_config(types.SimpleNamespace(
+            config=files, overrides=CONFIG_SETS, checkpoint=None), mode)
+        assert port == ref
+    assert port["batch_size"] == 8 and port["kitti"]["max_points"] == 4096
+    assert port["kitti"]["vertical_field_of_view"] == [-20 / 180.0 * math.pi,
+                                                       3 / 180.0 * math.pi]
+    assert port["darpa"]["vertical_field_of_view"] == [-22.5, 22.5]    # not in datasets
+    assert port["lr_scaling"] == ("linear" if stack == "packaged+preset" else "none")
+
+
+def test_config_files_replace_the_defaults_and_merge_in_order(config_files, tmp_path):
+    """Later files win; the files replace the port's defaults (a stack
+    without the model keys is refused, as by the reference); a file that
+    sets a key the defaults lack carries it."""
+    _, jsons = config_files
+    extra = str(tmp_path / "extra.json")
+    with open(extra, "w") as f:
+        json.dump({"batch_size": 16, "kitti": {"max_points": 2048}, "profile_epochs": [2]}, f)
+    stack = [jsons[n] for n in PACKAGED[:3]]
+    a = default_config(files=stack + [jsons[PACKAGED[3]], extra])
+    b = default_config(files=stack + [extra, jsons[PACKAGED[3]]])
+    assert (a["batch_size"], b["batch_size"]) == (16, 4096)
+    assert a["kitti"]["max_points"] == b["kitti"]["max_points"] == 2048
+    assert a["profile_epochs"] == [2] and a["visualize_every_epochs"] == 10
+    assert a["kitti"]["vertical_cells"] == 64          # deep-merged, not replaced
+    with pytest.raises(KeyError):
+        default_config(files=[jsons[PACKAGED[3]]])
+    with pytest.raises(KeyError):
+        jax_cli.load_config(config_files=[jsons[PACKAGED[3]]])
+
+
+def test_config_file_from_the_port_defaults_is_the_default_config(tmp_path):
+    """A file written from ``default_settings()`` (the YAML's units) gives
+    the default config, in every mode."""
+    from delora_tpu_torch.config import default_settings
+
+    path = str(tmp_path / "cfg.json")
+    with open(path, "w") as f:
+        json.dump(default_settings(), f)
+    for mode in ("training", "testing", "preprocessing"):
+        assert default_config(mode=mode, files=[path]) == default_config(mode=mode)

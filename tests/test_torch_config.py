@@ -50,11 +50,11 @@ def test_config_rejects_bad_values():
         default_config({"activation_fct": "gelu"})
     with pytest.raises(ValueError):
         default_config({"quaternion_normalization": "none"})
+    with pytest.raises(ValueError):
+        default_config({"native_io": "yes"})
 
 
 @pytest.mark.parametrize("override", [
-    {"native_io": True},
-    {"profile_epochs": [1]},
     {"kitti": {"dataset_type": "rosbag"}},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()).replace(" ", ""))
 def test_unported_settings_raise(override):
@@ -75,12 +75,15 @@ def test_unported_settings_raise(override):
     {"fused_adam": True},
     {"cache_source_projections": False},
     {"remat": True},
+    {"native_io": True},
+    {"profile_epochs": [1]},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_ported_settings_are_accepted_and_run(override):
     """The quality recipe's settings, brute and projective correspondence,
     augmentation, the raw and the cached-target feeds
-    (``cache_source_projections: false``), ``fused_adam`` and ``remat`` pass
-    validation and train: one epoch of a tiny world on the CPU."""
+    (``cache_source_projections: false``), ``fused_adam``, ``remat``,
+    ``native_io`` and ``profile_epochs`` pass validation and train: one epoch
+    of a tiny world on the CPU."""
     import numpy as np
     import torch
 

@@ -28,7 +28,9 @@ def test_port_files_found():
                    "training/step.py", "training/state.py", "training/trainer.py",
                    "models/resnet.py", "ops/eigh3.py", "ops/normals.py", "data/preprocess.py",
                    "data/dataset.py", "training/checkpoint.py", "training/tester.py", "cli.py",
-                   "se3.py", "models/odometry.py", "config.py"):
+                   "se3.py", "models/odometry.py", "config.py", "data/native_io.py",
+                   "data/synthetic.py", "utils/torch_import.py", "utils/profiling.py",
+                   "utils/plotting.py", "utils/visualize_normals.py"):
         assert ROOT / "delora_tpu_torch" / module in PORT_FILES, module
 
 
