@@ -127,16 +127,52 @@ exits non-zero without printing a result:
    the training panels on the card (two exact placements, one packed, one
    matcher launch) against the CPU's plain path on the same weights and pair
    in fp32, TF32 off (each panel's pixels within atol 1e-5 + rtol 1e-4 on at
-   least 99.5% of them).
+   least 99.5% of them);
+12. the ROS half and data parallelism, at full width: (a) ``RosOdometryBridge``
+   under stub ROS modules (``serving/ros_stubs.py``, in ``sys.modules``) with the
+   default KITTI model (bf16, seeded weights) on phase 3's first 12 scans:
+   one exact placement a scan and no other kernel, every published Odometry
+   and TF bit-equal to ``StreamingOdometry`` fed the same scans, the
+   callback's latency (p50, max); (b) phase 3's drive exported by
+   ``data/export_sequence.py`` as ``.npy`` (sequence 0) and as a stub bag on
+   the darpa topic (sequence 1), preprocessed as the rosbag-type ``darpa``
+   at its published 64x512 (one exact placement a scan; the bag's files
+   bit-equal to the export's), then 3 epochs at full width, B = 8, on device
+   tables (one packed placement and one matcher launch a step, every metric
+   finite); (c) data parallelism through ``parallel/multiprocess.py`` on the
+   drive preprocessed as KITTI, fp32 (TF32 off, deterministic kernels),
+   global B = 8. First a step witness from random weights: one step of two
+   gloo processes on the card, whose averaged gradients and metrics must
+   equal the mean of the plain step's on the two halves of the batch (rtol
+   1e-5 of each tensor's largest gradient, predicted bit-equal) and lie
+   within 1e-2 norm-wise of the plain step's on the whole batch, with the
+   gap between each half's forward at B = 4 and the whole batch's at B = 8
+   printed. Then the disk trainer, 3 epochs on device tables and a resume
+   from ``latest`` on every process for one epoch streamed from the host:
+   from the identity pose the plain trainer in one process, a group of one
+   over NCCL (every step's loss bit-equal to the plain trainer's) and two
+   gloo processes sharing the card (tables split over them; every step's
+   loss within rtol 1e-5 of the plain trainer's); from the random weights
+   the plain trainer and two gloo processes, their drift printed, not held.
+   Each run's processes report identical losses, each process's launches
+   are exact (one packed placement and one matcher a step, on every rank),
+   rank 0 alone writes the checkpoints, and every rank resumes with the
+   saved weights; pairs/s by epoch, the two processes' labelled as sharing
+   one card. Also in phase 4f: the 1-NN's
+   library yardstick ``torch.cdist(s, t).min(-1)`` at B = 1 (24.2 GB of
+   distances; at B = 8 it would need 193 GB and is not run).
 
-Each path of phases 5-11 is driven with every kernel's launch count set to 0
+Each path of phases 5-12 is driven with every kernel's launch count set to 0
 just before it and read just after; the placement wrapper counts its exact
 and its packed rule apart. A path fails unless each of its kernels launched
 as often as the path should launch it and every other kernel not at all.
 
+Phase 12c's processes read their own counts and hand them back.
+
 The last lines are the card (nvidia-smi), the kernel table as one JSON object
-(every row with its launches by path, as read in those runs, and the exact
-placement's row with its preprocessing shape), and ``{"ok": true, "device":
+(every row with its launches by path, as read in those runs, the exact
+placement's row with its preprocessing shape, and the 1-NN's with its B = 1
+yardstick), and ``{"ok": true, "device":
 {...}}``.
 
     python3 chip_smoke.py --train-rate EPOCHS
@@ -1388,7 +1424,24 @@ def check_nn_search(trainer, scans, normals, spec, rng, card):
         if B == TRAIN_B:
             timing = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                           bound_by=bound_by, device_ms=dev_ms)
+        else:
+            timing["library_ms_b1"] = nn_library_ms(args[0], args[1], card)
     return timing, err
+
+
+def nn_library_ms(src, tgt, card) -> float:
+    """The 1-NN's one-call PyTorch yardstick at B = 1, ``torch.cdist(s,
+    t).min(-1)`` over every target slot (CUDA events); at the train batch
+    its distances would pass the card's memory, so it is not run there."""
+    S, T = src.shape[1], tgt.shape[1]
+    torch.cuda.empty_cache()
+    lib_ms = cuda_ms(lambda: torch.cdist(src, tgt).min(-1), reps=3, inner=1)
+    torch.cuda.empty_cache()
+    say(f"nn_search yardstick B=1: torch.cdist(s, t).min(-1) over all {T} target slots "
+        f"({S * T * 4 / 1e9:.1f} GB of distances) {lib_ms:.3f} ms; at B={TRAIN_B} it would "
+        f"hold {TRAIN_B * S * T * 4 / 1e9:.0f} GB of distances, more than the card has: not "
+        f"run, on {card}")
+    return lib_ms
 
 
 def run_serving(config, scans, spec, card):
@@ -2441,6 +2494,459 @@ def run_sixth_slice(card) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 12: the seventh slice's paths. The ROS bridge under stub ROS modules,
+# a rosbag-type dataset (the drive exported as .npy and as a stub bag,
+# preprocessed and trained as ``darpa`` at its published 64x512), and
+# data-parallel training through ``parallel/multiprocess.py``: a group of one
+# over NCCL, and two gloo processes sharing the one card.
+ROS_SCANS = 12
+ROS_EPOCHS = 3
+DIST_EPOCHS = 3
+# Phase 12c's runs start where the supervised warmup leaves the model (the
+# heads at the identity pose) and take the card's deterministic kernels
+# (``multiprocess.train_run``): from random weights a step's correspondences
+# change with the last bit of the pose, and under cuDNN's default kernels the
+# plain trainer differs from itself from its second step on. Their fp32
+# per-step losses are compared with the plain trainer's. A group of one over
+# NCCL takes the same steps with identity collectives (an all-reduce of one,
+# a broadcast from itself): bit for bit.
+DIST_ONE_RTOL = 0.0
+# Two processes each run half of every global batch and the gradients are
+# summed in another order: within the CPU test's 1e-5.
+DIST_TWO_RTOL = 1e-5
+DIST_TIMEOUT = 600.0
+# Phase 12c's step witness, from random weights (tolerances set before its
+# first run). Each of two gloo processes steps on its half of the global batch
+# and the all-reduce averages the halves' gradients; the reference is the
+# plain step on each half in one process, averaged by hand. The same kernels
+# on the same shapes: predicted bit-equal, held within the CPU test's 1e-5 of
+# each tensor's largest gradient (and 1e-5 relative on every metric), which a
+# missing or doubled division by the world size (a factor 2) cannot pass.
+DIST_HALVES_RTOL = 1e-5
+# The same step against the plain step on the whole batch: the convolutions
+# may sum in another order at B / 2 than at B, a pose moves by an ulp and a
+# few matches change hands, each moving a mean by about 1 / (number of
+# pairs); the gradients held within 1e-2 norm-wise, the loss within 1e-2.
+DIST_WHOLE_RTOL = 1e-2
+
+
+def published_values(bridge):
+    """Each published pair: (Odometry position + quaternion, TF translation +
+    rotation, Odometry frame, TF frames, stamp seconds)."""
+    out = []
+    for odom, tfm in zip(bridge.pub.published, bridge.tf_broadcaster.sent):
+        p, q = odom.pose.pose.position, odom.pose.pose.orientation
+        t, r = tfm.transform.translation, tfm.transform.rotation
+        out.append(([p.x, p.y, p.z, q.x, q.y, q.z, q.w], [t.x, t.y, t.z, r.x, r.y, r.z, r.w],
+                    odom.header.frame_id, (tfm.header.frame_id, tfm.child_frame_id),
+                    odom.header.stamp.to_sec()))
+    return out
+
+
+def run_ros_bridge(scans, card) -> None:
+    """Phase 12a: ``RosOdometryBridge`` under the stub ROS modules with the
+    default KITTI model (64x720, bf16, seeded weights) on phase 3's first
+    scans, against ``StreamingOdometry`` fed the same scans directly."""
+    import importlib
+    from types import SimpleNamespace as NS
+
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.serving import ros_bridge, ros_stubs
+    from delora_tpu_torch.serving.stream import StreamingOdometry
+
+    remove = ros_stubs.install()
+    try:
+        importlib.reload(ros_bridge)
+        if not ros_bridge.ROS_AVAILABLE:
+            raise RuntimeError("ros bridge: the stub ROS modules did not import")
+        config = default_config()
+        bridge = ros_bridge.RosOdometryBridge(config, device="cuda")
+        scans = scans[:ROS_SCANS]
+        reset_launches()
+        callback_s, engine_s = [], []
+        for k, scan in enumerate(scans):
+            msg = ros_stubs.PointCloud2(NS(stamp=ros_stubs.Time(0.1 * k),
+                                           frame_id="velodyne"), [], scan)
+            t0 = time.perf_counter()
+            bridge._callback(msg)
+            callback_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        launches = path_launches("ros_bridge", {"placement": len(scans)})
+        got = published_values(bridge)
+        direct = StreamingOdometry(config, device="cuda")
+        want = []
+        for k, scan in enumerate(scans):
+            out = direct.push_scan(scan)
+            if out is None:
+                continue
+            T, pose, latency = out
+            engine_s.append(latency)
+            want.append(([float(v) for v in T[:3, 3]] + list(ros_bridge.rotmat_to_quat_np(
+                T[:3, :3])), [float(v) for v in pose[:3, 3]] + list(
+                ros_bridge.rotmat_to_quat_np(pose[:3, :3])), "lidar", ("world", "lidar"),
+                0.1 * k))
+        if len(got) != len(scans) - 1 or got != want:
+            raise RuntimeError(f"ros bridge: {len(got)} published pairs differ from "
+                               f"StreamingOdometry's {len(want)}")
+        if not all(np.isfinite(v).all() for g in got for v in g[:2]):
+            raise RuntimeError("ros bridge: published poses not finite")
+        lat = sorted(callback_s[1:])
+        say(f"ros bridge (stub ROS, default KITTI model, bf16, {len(scans)} scans of phase 3): "
+            f"{len(got)} Odometry + TF pairs bit-equal to StreamingOdometry fed the same "
+            f"scans, frames lidar / world->lidar, stamps 0.1 s apart; launches {launches}; "
+            f"callback latency (host clock, the stub's read_points included) p50 "
+            f"{statistics.median(lat) * 1e3:.2f} ms, max {lat[-1] * 1e3:.2f} ms; the "
+            f"engine's own p50 {statistics.median(engine_s) * 1e3:.2f} ms, max "
+            f"{max(engine_s) * 1e3:.2f} ms; last translation "
+            f"{np.round(got[-1][1][:3], 4).tolist()} on {card}")
+    finally:
+        remove()
+        importlib.reload(ros_bridge)
+
+
+def run_rosbag_dataset(root, card) -> None:
+    """Phase 12b: phase 3's drive (a KITTI layout under ``root/kitti``)
+    exported by the port's exporter as ``.npy`` (sequence 0) and as a stub bag
+    on the darpa topic (sequence 1), preprocessed as ``darpa`` at 64x512
+    (both sequences' files bit-equal), then 3 epochs of training at full
+    width, B = 8, on sequence 0."""
+    import os
+
+    from delora_tpu_torch import cli
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.data.export_sequence import (
+        export_sequence,
+        filtered_scans,
+        velodyne_files,
+        write_bag,
+    )
+    from delora_tpu_torch.serving import ros_stubs
+
+    remove = ros_stubs.install()
+    try:
+        velodyne = os.path.join(root, "kitti", "sequences", "00", "velodyne")
+        data = os.path.join(root, "darpa")
+        t0 = time.perf_counter()
+        export_sequence(velodyne, data, sequence="00")
+        topic = default_config()["darpa"]["topic"]
+        n_bag = write_bag(filtered_scans(velodyne_files(velodyne), keep_intensity=True),
+                          os.path.join(data, "1.bag"), topic=topic)
+        export_s = time.perf_counter() - t0
+        darpa = {"training_identifiers": [0], "testing_identifiers": [1],
+                 "data_path": data, "preprocessed_path": os.path.join(root, "darpa_pre")}
+        common = ['datasets=["darpa"]', f"darpa={json.dumps(darpa)}",
+                  f"log_dir={json.dumps(os.path.join(root, 'runs'))}"]
+        reset_launches()
+        t0 = time.perf_counter()
+        pre = cli.main(["preprocess", "--set"] + common)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        n_scans = len(os.listdir(velodyne))
+        pre_launches = path_launches("rosbag_preprocess", {"placement": 2 * n_scans})
+        config = default_config({"datasets": ["darpa"], "darpa": darpa})
+        spec = config["darpa"]
+        base = spec["preprocessed_path"]
+        survivors = []
+        for k in range(n_scans):
+            a, b = (np.load(os.path.join(base, seq, "scans", f"{k:06d}.npy"))
+                    for seq in ("00", "01"))
+            if not np.array_equal(a, b) or not np.array_equal(
+                    *(np.load(os.path.join(base, seq, "normals", f"{k:06d}.npy"))
+                      for seq in ("00", "01"))):
+                raise RuntimeError(f"rosbag preprocess: scan {k} from the bag differs from "
+                                   f"the export's")
+            survivors.append(len(a))
+        say(f"rosbag export: {n_scans} scans as .npy and {n_bag} PointCloud2 messages on "
+            f"{topic} in a stub bag, {export_s:.2f} s; preprocess (cli, card, darpa "
+            f"{spec['vertical_cells']}x{spec['horizontal_cells_preprocessing']}, max_points "
+            f"{spec['max_points']}): {2 * n_scans} scans in {pre_s:.2f} s ("
+            + ", ".join(f"{k} {v / (2 * n_scans) * 1e3:.2f} ms" for k, v in pre.seconds.items())
+            + f" a scan), {min(survivors)}-{max(survivors)} survivors a scan, the bag's files "
+            f"bit-equal to the export's; launches {pre_launches} on {card}")
+
+        steps = ROS_EPOCHS * ((n_scans - 1) // TRAIN_B)
+        reset_launches()
+        trainer = cli.main(["train", "--epochs", str(ROS_EPOCHS), "--run-name", "darpa",
+                            "--set"] + common + [
+            f"batch_size={TRAIN_B}", "unsupervised_at_start=true", "visualize_images=false",
+            f"checkpoint_dir={json.dumps(os.path.join(root, 'ckpt_darpa'))}"])
+        torch.cuda.synchronize()
+        launches = path_launches("rosbag_train", {"placement_packed": steps,
+                                                  "window_match": steps})
+        records = epoch_records(trainer)
+        if len(records) != ROS_EPOCHS or not all(np.isfinite(v) for r in records
+                                                 for v in r.values()):
+            raise RuntimeError(f"rosbag train: epoch metrics {records}")
+        if trainer.feeds["darpa"].tables is None:
+            raise RuntimeError("rosbag train: the darpa tables are not on the card")
+        say(f"rosbag train (cli, card, darpa 64x512, full width, B={TRAIN_B}, bf16, tables on "
+            f"the card): epochs " + "; ".join(
+                f"{r['step']}: loss {r['loss']:.6f}, {r['steps']:.0f} steps, "
+                f"{r['scan_pairs_per_sec']:.1f} pairs/s" for r in records)
+            + f"; launches {launches} for {steps} steps on {card}")
+    finally:
+        remove()
+
+
+def record_launches(path: str, counts, expected) -> dict:
+    """:func:`path_launches` for counts read in another process."""
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise RuntimeError(f"{path}: kernel launches {counts}, expected {want}")
+    PATH_LAUNCHES[path] = dict(counts)
+    return {name: n for name, n in counts.items() if n}
+
+
+def first_step_worker(device, config, init_weights):
+    """Phase 12c's step witness, in each process of a run: the disk
+    trainer's first step of epoch 0 from ``init_weights``, deterministic
+    kernels, TF32 off -> its metrics, its gradients (averaged over the group
+    in a group) and a digest of the weights after it. Without a group it
+    also takes the plain step on each half (rows r::2) of the global batch,
+    each from the same weights, and the largest gap between each half's model
+    forward (B / 2) and the same rows of the whole batch's forward (B)."""
+    import hashlib
+
+    from delora_tpu_torch.parallel import dist as pdist
+    from delora_tpu_torch.parallel.multiprocess import deterministic_kernels
+    from delora_tpu_torch.training.state import make_optimizer
+    from delora_tpu_torch.training.step import StepConfig, forward_pose, train_step
+    from delora_tpu_torch.training.trainer import Trainer
+
+    deterministic_kernels()
+    trainer = Trainer(config, device=device, run_name="first_step")
+    trainer.model.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                                   for k, v in init_weights.items()})
+    dataset = trainer.datasets[0]
+    cfg = StepConfig.from_config(config, dataset, supervised=trainer.supervised)
+    batch = next(trainer.batches(0, dataset))
+
+    def grads(model):
+        return [p.grad.detach().cpu().numpy() for p in model.parameters()]
+
+    out = {"rank": pdist.rank(), "halves": []}
+    if not pdist.active():
+        with torch.no_grad():
+            whole = forward_pose(trainer.model, batch.image_1, batch.image_2,
+                                 deterministic=True)
+        for r in range(2):
+            half = type(batch)(*(x[r::2] for x in batch))
+            with torch.no_grad():
+                T = forward_pose(trainer.model, half.image_1, half.image_2, deterministic=True)
+            model = copy.deepcopy(trainer.model)
+            optimizer, _ = make_optimizer(config, model.parameters(), trainer.batch_size)
+            metrics = train_step(model, optimizer, half, cfg)
+            out["halves"].append({"metrics": {k: float(v) for k, v in metrics.items()},
+                                  "grads": grads(model),
+                                  "forward_gap": float((T - whole[r::2]).abs().max())})
+    metrics = trainer.step(batch, cfg)
+    digest = hashlib.sha256()
+    for value in trainer.model.state_dict().values():
+        digest.update(value.detach().cpu().numpy().tobytes())
+    out.update(metrics={k: float(v) for k, v in metrics.items()}, grads=grads(trainer.model),
+               weights=digest.hexdigest())
+    return out
+
+
+def check_first_step(root, config, init, card) -> None:
+    """Phase 12c's step witness: :func:`first_step_worker` in one process and
+    in two gloo processes on the card, from the same random weights. The two
+    processes' gradients and weights after the step agree bit for bit; their
+    gradients and metrics against the mean of the plain step's on the two
+    halves within :data:`DIST_HALVES_RTOL`, and against the plain step on the
+    whole batch within :data:`DIST_WHOLE_RTOL` (norm-wise)."""
+    import os
+
+    from delora_tpu_torch.parallel.dist import SUMMED_METRICS
+
+    target = "chip_smoke:first_step_worker"
+    kwargs = dict(config=config, init_weights=init)
+    plain = run_group_on_card(target, 1, kwargs, os.path.join(root, "step_plain"))[0]
+    two = run_group_on_card(target, 2, kwargs, os.path.join(root, "step_gloo_2"),
+                            backend="gloo", single_process_group=True)
+    for r in two[1:]:
+        if r["weights"] != two[0]["weights"] or r["metrics"] != two[0]["metrics"] or \
+                not all(np.array_equal(a, b) for a, b in zip(r["grads"], two[0]["grads"])):
+            raise RuntimeError("dist step: the two processes disagree after the step")
+    h0, h1 = plain["halves"]
+    half_mean = [(a + b) / np.float32(2) for a, b in zip(h0["grads"], h1["grads"])]
+    got = two[0]["grads"]
+    gap = max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+              for g, w in zip(got, half_mean))
+    bit_equal = sum(np.array_equal(g, w) for g, w in zip(got, half_mean))
+    metric_gap = {}
+    for key, value in two[0]["metrics"].items():
+        if key == "grad_norm":
+            want = float(np.sqrt(sum(float((w.astype(np.float64) ** 2).sum())
+                                     for w in half_mean)))
+        elif key in SUMMED_METRICS:
+            want = h0["metrics"][key] + h1["metrics"][key]
+        else:
+            want = float((np.float32(h0["metrics"][key]) + np.float32(h1["metrics"][key]))
+                         / np.float32(2))
+        metric_gap[key] = abs(value - want) / max(abs(want), 1e-12)
+    whole = plain["grads"]
+    whole_gap = float(np.sqrt(sum(float(((g.astype(np.float64) - w) ** 2).sum())
+                                  for g, w in zip(got, whole))
+                              / sum(float((w.astype(np.float64) ** 2).sum()) for w in whole)))
+    loss_gap = abs(two[0]["metrics"]["loss"] - plain["metrics"]["loss"]) / abs(
+        plain["metrics"]["loss"])
+    say(f"dist step witness (full width, fp32, deterministic kernels, random weights seeded "
+        f"{SEED}, global B={TRAIN_B}): first-step loss plain B={TRAIN_B} "
+        f"{plain['metrics']['loss']!r}, 2 gloo processes {two[0]['metrics']['loss']!r}, "
+        f"plain halves (B={TRAIN_B // 2}) {h0['metrics']['loss']!r} and "
+        f"{h1['metrics']['loss']!r}; the model forward of each half against the same rows "
+        f"of the whole batch's: max |gap| {h0['forward_gap']:.3e} and "
+        f"{h1['forward_gap']:.3e}; the 2 processes' gradients against the mean of the "
+        f"halves': {bit_equal} of {len(got)} tensors bit-equal, largest gap {gap:.3e} of a "
+        f"tensor's largest gradient (limit {DIST_HALVES_RTOL}), metrics' largest relative "
+        f"gap {max(metric_gap.values()):.3e}; against the whole batch's step: gradients "
+        f"{whole_gap:.3e} norm-wise (limit {DIST_WHOLE_RTOL}), loss {loss_gap:.3e}; both "
+        f"processes' gradients and weights after the step bit-equal on {card}")
+    if gap > DIST_HALVES_RTOL or max(metric_gap.values()) > DIST_HALVES_RTOL:
+        raise RuntimeError(f"dist step: 2 processes against the halves' mean: gradients "
+                           f"{gap:.3e}, metrics {metric_gap} (limit {DIST_HALVES_RTOL})")
+    if whole_gap > DIST_WHOLE_RTOL or loss_gap > DIST_WHOLE_RTOL:
+        raise RuntimeError(f"dist step: 2 processes against the whole batch's step: "
+                           f"gradients {whole_gap:.3e}, loss {loss_gap:.3e} (limit "
+                           f"{DIST_WHOLE_RTOL})")
+
+
+def run_group_on_card(target, nproc, kwargs, workdir, backend=None,
+                      single_process_group=False):
+    """``multiprocess.run_group`` with every process on ``cuda:0``."""
+    from delora_tpu_torch.parallel.multiprocess import run_group
+
+    return run_group(target, nproc, kwargs, workdir=workdir, device="cuda:0",
+                     backend=backend, single_process_group=single_process_group,
+                     timeout=DIST_TIMEOUT)
+
+
+def run_distributed(root, card) -> None:
+    """Phase 12c: the disk trainer through ``parallel/multiprocess.py`` on
+    phase 3's drive preprocessed as KITTI, at full width, fp32 (TF32 off),
+    global B = 8. The step witness (:func:`check_first_step`) from random
+    weights; then the plain trainer in one process, a group of one over
+    NCCL, and two gloo processes sharing the card, from the identity pose,
+    and the plain trainer and two gloo processes from the random weights:
+    each run 3 epochs on device tables (split over the group's processes),
+    then a resume from ``latest`` on every process for one epoch streamed
+    from the host."""
+    import os
+    import shutil
+
+    from delora_tpu_torch import cli
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
+    from delora_tpu_torch.parallel.multiprocess import MODULE, check_run, relative_drift
+
+    kitti = {"data_path": os.path.join(root, "kitti", "sequences"),
+             "preprocessed_path": os.path.join(root, "kitti_pre"),
+             "pose_data_path": os.path.join(root, "kitti", "poses"),
+             "training_identifiers": [0], "testing_identifiers": [0]}
+    reset_launches()
+    cli.main(["preprocess", "--set", f"kitti={json.dumps(kitti)}"])
+    torch.cuda.synchronize()
+    n_scans = len(os.listdir(os.path.join(kitti["preprocessed_path"], "00", "scans")))
+    path_launches("dist_preprocess", {"placement": n_scans})
+    config = default_config({
+        "kitti": kitti, "batch_size": TRAIN_B, "compute_dtype": "float32",
+        "unsupervised_at_start": True, "visualize_images": False,
+        "checkpoint_dir": os.path.join(root, "ckpt_dist"),
+        "log_dir": os.path.join(root, "runs_dist")})
+    model = OdometryModel(ModelConfig.from_config(config), torch.Generator().manual_seed(SEED))
+    random_init = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    check_first_step(root, config, random_init, card)
+    start_at_identity(model)
+    identity_init = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    steps = (n_scans - 1) // TRAIN_B
+    per_step = {"placement_packed": 1, "window_match": 1}
+    runs = {}
+    for label, nproc, backend, group, init in (
+            ("plain", 1, None, False, identity_init),
+            ("nccl_1", 1, "nccl", True, identity_init),
+            ("gloo_2", 2, "gloo", True, identity_init),
+            ("plain_random", 1, None, False, random_init),
+            ("gloo_2_random", 2, "gloo", True, random_init)):
+        for key in ("checkpoint_dir", "log_dir"):
+            shutil.rmtree(config[key], ignore_errors=True)
+        t0 = time.perf_counter()
+        results = run_group_on_card(
+            f"{MODULE}:train_run", nproc,
+            dict(config=config, epochs=DIST_EPOCHS, run_name=label, init_weights=init),
+            os.path.join(root, f"dist_{label}"), backend=backend,
+            single_process_group=group)
+        wall = time.perf_counter() - t0
+        check_run(results, DIST_EPOCHS)
+        for r in results:
+            if r["world"] != nproc or not (r["resident"] and r["streamed"]):
+                raise RuntimeError(f"dist {label}: rank {r['rank']} world {r['world']}, "
+                                   f"resident {r['resident']}, streamed {r['streamed']}")
+            if not all(np.isfinite(v) for m in r["metrics"] for v in m.values()):
+                raise RuntimeError(f"dist {label}: metrics not finite {r['metrics']}")
+            suffix = f"_rank{r['rank']}" if nproc > 1 else ""
+            record_launches(f"dist_{label}{suffix}_train", r["launches_train"],
+                            {k: v * DIST_EPOCHS * steps for k, v in per_step.items()})
+            record_launches(f"dist_{label}{suffix}_resume", r["launches_resume"],
+                            {k: v * steps for k, v in per_step.items()})
+        if results[0]["checkpoint_files"] != ["epoch_00000", "latest"] or \
+                results[0]["writes"] != DIST_EPOCHS + 1:
+            raise RuntimeError(f"dist {label}: checkpoints {results[0]['checkpoint_files']}, "
+                               f"rank 0 wrote {results[0]['writes']}")
+        runs[label] = results
+        rates = [m["scan_pairs_per_sec"] for m in results[0]["metrics"]]
+        say(f"dist {label} ({nproc} process{'es' if nproc > 1 else ''}"
+            + (f", {backend}" if backend else ", no group")
+            + (", 2 ranks sharing one card" if nproc > 1 else "")
+            + f"; full width, fp32, global B={TRAIN_B}, from "
+            + ("random weights" if init is random_init else "the identity")
+            + f"): losses {results[0]['losses']} identical on every rank; "
+            f"pairs/s by epoch {[round(x, 1) for x in rates]} (the last streamed after the "
+            f"resume); checkpoint files written by rank {[r['writes'] for r in results]}; "
+            f"resumed at epoch {results[0]['start_epoch']} on every rank with the saved "
+            f"weights; launches a rank: train {results[0]['launches_train']}, resume "
+            f"{results[0]['launches_resume']}; {wall:.1f} s with start-up on {card}")
+
+    def step_losses(label):
+        return [x for epoch in runs[label][0]["step_losses"] for x in epoch]
+
+    plain = step_losses("plain")
+    one = relative_drift(plain, step_losses("nccl_1"))
+    two = relative_drift(plain, step_losses("gloo_2"))
+    if len(plain) != (DIST_EPOCHS + 1) * steps or one > DIST_ONE_RTOL \
+            or two > DIST_TWO_RTOL:
+        raise RuntimeError(f"dist: {len(plain)} per-step losses drift {one:.3e} from the plain "
+                           f"trainer's (NCCL, one process; limit {DIST_ONE_RTOL}) and "
+                           f"{two:.3e} (2 gloo processes; limit {DIST_TWO_RTOL})")
+    random_steps = (step_losses("plain_random"), step_losses("gloo_2_random"))
+    random_epochs = (runs["plain_random"][0]["losses"], runs["gloo_2_random"][0]["losses"])
+    say(f"dist fp32 per-step losses ({len(plain)} steps) against the plain trainer from the "
+        f"identity: a group of one over NCCL max relative drift {one:.3e} (limit "
+        f"{DIST_ONE_RTOL}), 2 gloo processes on one card {two:.3e} (limit {DIST_TWO_RTOL}); "
+        f"from random weights (not held: the halves' forwards differ from the whole "
+        f"batch's in the last bits, see the step witness, and training from random "
+        f"weights amplifies that): 2 gloo processes' per-step losses {random_steps[1]} "
+        f"against the plain trainer's {random_steps[0]}, max relative drift "
+        f"{relative_drift(*random_steps):.3e}, per epoch {relative_drift(*random_epochs):.3e}; "
+        f"NCCL across two cards is not checked (one card) on {card}")
+
+
+def run_seventh_slice(scans, card) -> None:
+    """Phase 12 (see the module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    run_ros_bridge(scans, card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_seventh_")
+    try:
+        write_kitti_layout(os.path.join(root, "kitti"), scans)
+        run_rosbag_dataset(root, card)
+        run_distributed(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
@@ -2538,6 +3044,9 @@ def main() -> None:
     # the .pth export and serving from it, the training panels.
     run_sixth_slice(card)
 
+    # Phase 12: the ROS bridge, a rosbag-type dataset, data-parallel training.
+    run_seventh_slice(scans, card)
+
     def row(name_, source, replaces, err, t):
         by_path = {path: counts[name_] for path, counts in PATH_LAUNCHES.items()
                    if counts[name_]}
@@ -2548,7 +3057,7 @@ def main() -> None:
                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
                 "launches_by_path": by_path,
                 **{k: t[k] for k in ("floor_ms", "floor_instructions_per_candidate",
-                                     "preprocess_shape") if k in t}}
+                                     "preprocess_shape", "library_ms_b1") if k in t}}
 
     matcher_src = "delora_tpu_torch/csrc/window_match.cu"
     print(card, flush=True)

@@ -13,13 +13,16 @@ preprocessing) sets each dataset's ``data_identifiers``. ``preprocess
 ``export-torch`` writes a trainer checkpoint's live weights in the original
 DeLORA ``.pth`` layout (reference cli.py:105-135); ``visualize-normals``
 renders a preprocessed scan's normals. Every command runs on CUDA unless
-given ``--device cpu``. Not ported: ``bench``.
+given ``--device cpu``. ``train`` runs data-parallel under ``torchrun
+--nproc_per_node N``: one process a card (``cuda:LOCAL_RANK``, NCCL), or
+processes on the CPU over gloo with ``--device cpu``. Not ported: ``bench``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Any, Dict, List, Optional
 
 from delora_tpu_torch.config import default_config
@@ -75,12 +78,23 @@ def cmd_preprocess(args):
 
 
 def cmd_train(args):
+    """Train; under ``torchrun`` (``WORLD_SIZE`` above 1) each process joins
+    the group first and trains data-parallel on ``cuda:LOCAL_RANK`` (or the
+    CPU with ``--device cpu``, over gloo), as the reference's ``cmd_train``
+    initializes its hosts (reference cli.py:59-72)."""
+    from delora_tpu_torch.parallel import dist as pdist
     from delora_tpu_torch.training.trainer import Trainer
 
     config = _build_config(args, "training")
     config.setdefault("training_run_name", args.run_name or "run")
-    trainer = Trainer(config, device=args.device, run_name=args.run_name)
-    trainer.train(args.epochs)
+    device = args.device
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = pdist.initialize_distributed(device=args.device)
+    try:
+        trainer = Trainer(config, device=device, run_name=args.run_name)
+        trainer.train(args.epochs)
+    finally:
+        pdist.shutdown()
     return trainer
 
 

@@ -2,12 +2,15 @@
 
 The same flat dict that ``delora_tpu.config.load_config()`` builds from its
 YAML stack. Without files it starts from the port's defaults, cut to the keys
-the ported paths read: the KITTI sensor and dataset spec, the
-normal-estimation keys, the deployment keys of the offline pipeline (paths,
-checkpoints, evaluation, the feed, profiling, images), the model keys, and
-the training, loss and correspondence keys. Values are those of
-``delora_tpu/configs/*.yaml``; fields of view are written in degrees and
-converted to radians once, by the same formula, so the floats are identical.
+the ported paths read: the sensor and dataset specs (``kitti`` and the
+rosbag-type ``darpa``), the normal-estimation keys, the deployment keys of the
+offline pipeline (paths, checkpoints, evaluation, the feed, profiling,
+images), the model keys, and the training, loss and correspondence keys.
+Values are those of ``delora_tpu/configs/*.yaml``; fields of view are written
+in degrees and converted to radians once, by the same formula, so the floats
+are identical: the horizontal one and those of the datasets that
+``datasets`` lists, as the reference converts them (a dataset block that is
+not listed keeps its degrees).
 Keys the YAML leaves out or commented out (``lr_decay_steps``,
 ``lr_min_ratio``, ``seed``, ``eval_batch_size``, ``prewarm_cache``,
 ``prewarm_threads``, ``training_run_name``, ``auto_resume``, ``checkpoint``,
@@ -26,10 +29,12 @@ works with the reference's ``delora --config``, provided every float has a
 dot: YAML 1.1 reads JSON's ``1e-05`` as a string. ``write_config_file``
 writes such floats as ``1.0e-05``.
 
-Settings whose code is not ported yet raise in validation rather than run
-silently: rosbag datasets. Everything else of the reference's training keys
-runs, including ``native_io`` (the C++ pair batcher of
-``csrc/delora_io.cpp``), ``profile_epochs`` and ``visualize_images``.
+Every dataset type of the reference runs: ``kitti`` (velodyne ``.bin``
+files) and ``rosbag`` (PointCloud2 messages on the spec's ``topic`` in
+``<id>*.bag`` files, or their per-scan ``.npy`` export;
+``data/rosbag.py``), as does every training key of the reference, including
+``native_io`` (the C++ pair batcher of ``csrc/delora_io.cpp``),
+``profile_epochs`` and ``visualize_images``.
 ``remat`` and ``fused_adam`` are not in the reference's YAML (``remat`` is
 commented out there) and are read with ``False`` as their default.
 
@@ -65,6 +70,21 @@ _DEFAULTS: Dict[str, Any] = {
         "preprocessed_path": "./datasets/kitti/preprocessed/sequences",
         "pose_data_path": "./datasets/kitti/data_odometry_poses/dataset/poses",
         "dataset_type": "kitti",
+    },
+    "darpa": {
+        "training_identifiers": [0],
+        "testing_identifiers": [0],
+        "vertical_field_of_view": [-22.5, 22.5],      # degrees
+        "vertical_cells": 64,
+        "horizontal_cells": 512,
+        "horizontal_cells_preprocessing": 512,
+        "neighborhood_side_length": [7, 11],
+        "max_points": 65536,
+        "data_path": "./datasets/darpa",
+        "preprocessed_path": "./datasets/darpa/preprocessed/sequences",
+        "pose_data_path": None,
+        "dataset_type": "rosbag",
+        "topic": "/sherman/lidar_points",
     },
     # deployment.yaml
     "datasets": ["kitti"],
@@ -204,23 +224,23 @@ def default_config(
     """The flat config dict. ``overrides`` are in the YAML's units (fields of
     view in degrees) and are deep-merged over ``base``, a dict this function
     returned before (for example a checkpoint's), else over the defaults.
-    ``files`` (JSON) replace the defaults; without ``base`` the overrides are
-    merged into them before the one conversion, as the reference's
-    ``load_config`` does; with ``base`` (rehydration) the converted files lie
-    under it. ``mode`` (else the config's own) sets each dataset's
+    ``files`` (JSON) replace the defaults. Without ``base`` the overrides
+    are merged into the files or the defaults before the one conversion, as
+    the reference's ``load_config`` does; with ``base`` (rehydration) the
+    converted files or defaults lie under it. ``mode`` (else the config's own) sets each dataset's
     ``data_identifiers``: the training identifiers, the testing ones, or for
     preprocessing the sorted union of both (reference config.py:83-97)."""
     if files is None:
-        config = _fov_to_radians(copy.deepcopy(_DEFAULTS))
+        config = copy.deepcopy(_DEFAULTS)
     else:
         config = {}
         for path in files:
             with open(path) as f:
                 _deep_merge(config, json.load(f) or {})
-        if base is None and overrides:
-            _deep_merge(config, overrides)
-            overrides = None
-        config = _listed_fov_to_radians(config)
+    if base is None and overrides:
+        _deep_merge(config, overrides)
+        overrides = None
+    config = _listed_fov_to_radians(config)
     if base is not None:
         # A base from an older slice may lack the keys added since.
         _deep_merge(config, base)
@@ -246,6 +266,7 @@ def default_config(
 
 
 _CORRESPONDENCE = ("image", "projective", "brute")
+_DATASET_TYPES = ("kitti", "rosbag")
 
 
 def training_feed(config: Mapping[str, Any]) -> str:
@@ -261,8 +282,7 @@ def training_feed(config: Mapping[str, Any]) -> str:
 
 
 def validate(config: Mapping[str, Any]) -> None:
-    """Raise for a config the port cannot run: bad values, or settings whose
-    code is not ported yet (NotImplementedError)."""
+    """Raise for a config the port cannot run (ValueError)."""
     if config["activation_fct"] not in ("relu", "tanh"):
         raise ValueError('activation_fct must be "relu" or "tanh"')
     if config["normal_loss"] not in ("squared", "linear"):
@@ -272,10 +292,9 @@ def validate(config: Mapping[str, Any]) -> None:
                          f"{config['correspondence']!r}")
     for dataset in config["datasets"]:
         kind = config.get(dataset, {}).get("dataset_type", "kitti")
-        if kind != "kitti":
-            raise NotImplementedError(
-                f"dataset_type {kind!r} of {dataset!r} is not ported yet: rosbag datasets come "
-                f"with the port's ROS slice, the next one; the port reads KITTI velodyne scans")
+        if kind not in _DATASET_TYPES:
+            raise ValueError(f"dataset_type of {dataset!r} must be one of {_DATASET_TYPES}, "
+                             f"got {kind!r}")
     if config.get("native_io", "auto") not in ("auto", True, False):
         raise ValueError(f"native_io must be auto, true or false, got {config['native_io']!r}")
     if config["soft_match_sigma"] < 0.0 or config["lambda_reverse_po2pl"] < 0.0:

@@ -26,8 +26,11 @@ Python producer of its ``BatchLoader``:
   raises if the library cannot be built), "auto" takes it when the RAM cache
   is off, False never. Its batches are bit for bit the Python producer's.
 
-One process reads the whole dataset: the reference's per-host sharding of
-the permutation is not ported.
+Under data parallelism each process (``num_shards`` of them) takes a strided
+shard of every epoch's global permutation, ``perm[shard_index::num_shards]``,
+and makes local batches of ``batch_size / num_shards`` pairs from it, as the
+reference's per-host shards do: the union of the shards' b-th batches is the
+global permutation's b-th chunk, and shard h holds its rows h, h + shards, ...
 """
 
 from __future__ import annotations
@@ -200,17 +203,28 @@ class BatchLoader:
     "cached" :class:`CachedTargetBatch` and "full" :class:`FullyCachedBatch`,
     on ``device``. ``native`` (True, "auto" or False) chooses the raw feed's
     C++ batcher (see the module docstring); ``use_native`` says whether it
-    was taken."""
+    was taken. ``batch_size`` is the global batch; shard ``shard_index`` of
+    ``num_shards`` gets ``local_batch`` pairs of each (see the module
+    docstring)."""
 
     def __init__(self, dataset: ScanPairDataset, batch_size: int, *, device: torch.device,
                  seed: int = 0, prefetch: int = 2, feed: str = "raw",
-                 native: Union[bool, str] = "auto"):
+                 native: Union[bool, str] = "auto", num_shards: int = 1,
+                 shard_index: int = 0):
+        if batch_size % num_shards != 0:
+            raise ValueError(f"batch_size {batch_size} must divide evenly across "
+                             f"{num_shards} shards")
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} outside 0..{num_shards - 1}")
         if feed not in ("raw", "cached", "full"):
             raise ValueError(f"unknown feed mode {feed!r}")
         if native not in ("auto", True, False):
             raise ValueError(f"native must be 'auto', True or False, got {native!r}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        self.local_batch = batch_size // num_shards
         self.device = torch.device(device)
         self.seed = seed
         self.prefetch = prefetch
@@ -225,15 +239,22 @@ class BatchLoader:
             library()                       # built now; raises if it cannot be
 
     def global_epoch_indices(self, epoch: int) -> np.ndarray:
-        """The epoch's pair order (see :func:`epoch_permutation`)."""
+        """The epoch's pair order over all shards (see
+        :func:`epoch_permutation`), the same in every process."""
         return epoch_permutation(len(self.dataset), self.batch_size, self.seed, epoch)
 
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        """This shard's pairs of the epoch, in order: the strided slice of
+        the global order."""
+        return self.global_epoch_indices(epoch)[self.shard_index::self.num_shards]
+
     def epoch(self, epoch: int) -> Iterator[Batch]:
-        """The epoch's batches on the device. A producer thread makes them
-        (``prefetch`` wait in its queue) while the caller's steps run; an
-        error in the producer is raised to the caller."""
-        indices = self.global_epoch_indices(epoch)
-        n_batches = len(indices) // self.batch_size
+        """This shard's batches of the epoch on the device. A producer thread
+        makes them (``prefetch`` wait in its queue) while the caller's steps
+        run; an error in the producer is raised to the caller."""
+        indices = self.epoch_indices(epoch)
+        B = self.local_batch
+        n_batches = len(indices) // B
         if self.use_native:
             yield from self._native_epoch(indices, n_batches)
             return
@@ -257,7 +278,7 @@ class BatchLoader:
                 for b in range(n_batches):
                     if stop.is_set():
                         return
-                    batch = make(indices[b * self.batch_size:(b + 1) * self.batch_size])
+                    batch = make(indices[b * B:(b + 1) * B])
                     tensors = tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in batch)
                     if pin:
                         tensors = tuple(t.pin_memory() for t in tensors)
@@ -298,7 +319,7 @@ class BatchLoader:
                 [p for seq in ds.scan_files for p in seq],
                 [p for seq in ds.normal_files for p in seq],
                 ds.max_points, n_threads=max(2, self.prefetch))
-        loader, flat, B = self._native_loader, self._pair_first_flat, self.batch_size
+        loader, flat, B = self._native_loader, self._pair_first_flat, self.local_batch
         requested = delivered = 0
 
         def request() -> None:

@@ -11,12 +11,16 @@ project_scan_batch``), then the neighbourhood-PCA normals
 
 The scan file holds the points that won their pixel, in their original
 order; the normals are row-aligned with them, zero where no normal exists.
+Raw scans come from the reader of the dataset's ``dataset_type``: KITTI
+velodyne files (``data/kitti.py``) or a rosbag sequence (``data/rosbag.py``:
+a bag's PointCloud2 messages or their ``.npy`` export), iterated in order.
 ``preview`` renders the first scan's range and normal images instead (the
 reference's single-image preprocessing preview; it needs matplotlib).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Dict, Optional
@@ -26,6 +30,7 @@ import torch
 
 from delora_tpu_torch import resolve_device
 from delora_tpu_torch.data.kitti import KittiSequenceReader
+from delora_tpu_torch.data.rosbag import RosbagSequenceReader
 from delora_tpu_torch.ops.normals import NormalsSpec, compute_normal_image, normals_for_points
 from delora_tpu_torch.ops.projection import ProjectionSpec, project_scan_batch
 
@@ -75,7 +80,7 @@ class Preprocessor:
         pspec = ProjectionSpec.from_config(self.config, dataset, preprocessing=True)
         nspec = NormalsSpec.from_config(self.config, dataset)
         seq = sequence if sequence is not None else spec["data_identifiers"][0]
-        raw = KittiSequenceReader(spec["data_path"], seq)[0][:, :3].astype(np.float32)
+        raw = next(iter(self._make_reader(dataset, seq)))[:, :3].astype(np.float32)
         capacity = int(spec["max_points"])
         n = min(len(raw), capacity)
         points = torch.zeros(capacity, 3, device=self.device)
@@ -111,18 +116,21 @@ class Preprocessor:
         capacity = staging_capacity(self.config, dataset, pspec)
         total = 0
         for seq in spec["data_identifiers"]:
-            reader = KittiSequenceReader(spec["data_path"], seq)
+            reader = self._make_reader(dataset, seq)
             out_dir = os.path.join(spec["preprocessed_path"], format(seq, "02d"))
             scans_dir = os.path.join(out_dir, "scans")
             normals_dir = os.path.join(out_dir, "normals")
             os.makedirs(scans_dir, exist_ok=True)
             os.makedirs(normals_dir, exist_ok=True)
-            for i in range(len(reader)):
+            scans = iter(reader)
+            for i in itertools.count():
                 if max_scans is not None and i >= max_scans:
                     break
                 t0 = time.perf_counter()
-                raw = reader[i]
+                raw = next(scans, None)
                 t1 = time.perf_counter()
+                if raw is None:
+                    break
                 scan, normals, dropped = self.preprocess_scan(
                     raw[:, :3].astype(np.float32), pspec, nspec, capacity)
                 t2 = time.perf_counter()
@@ -138,3 +146,14 @@ class Preprocessor:
                 if i % 100 == 0:
                     print(f"[preprocess] {dataset}/{seq:02d}: scan {i}", flush=True)
         return total
+
+    def _make_reader(self, dataset: str, seq: int):
+        """The raw scans of sequence ``seq`` by the dataset's
+        ``dataset_type`` (reference preprocess.py:153-162)."""
+        spec = self.config[dataset]
+        kind = spec.get("dataset_type", "kitti")
+        if kind == "kitti":
+            return KittiSequenceReader(spec["data_path"], seq)
+        if kind == "rosbag":
+            return RosbagSequenceReader(spec["data_path"], seq, spec.get("topic"))
+        raise ValueError(f"Unknown dataset_type {kind!r} for {dataset!r}")

@@ -5,7 +5,8 @@ images are concatenated channel-wise (optionally after a shared per-image conv
 feature extractor), run through the circular ResNet, and regressed by two
 activation-first MLP heads (1000 -> 100 -> 4 rotation, -> 3 translation) or
 one shared 512-512-256-64-7 MLP (rotation first). Quaternions are (x, y, z, w),
-normalized per row or over the whole tensor.
+normalized per row or over the whole tensor (over the global batch when the
+model runs on one process's share of it).
 
 ``compute_dtype`` bfloat16 runs the network under ``torch.autocast``;
 parameters stay float32 and the outputs come out float32. ``use_dropout``
@@ -118,10 +119,15 @@ class OdometryModel(nn.Module):
         return image
 
     def forward(self, image_1: torch.Tensor, image_2: torch.Tensor,
-                generator: Optional[torch.Generator] = None, deterministic: bool = False):
+                generator: Optional[torch.Generator] = None, deterministic: bool = False,
+                shard=None):
         """image_*: [B, H, W, C] -> (translation [B, 3], quat_xyzw [B, 4]), f32.
         ``generator`` draws the dropout masks in training mode;
-        ``deterministic`` (the reference's flag) turns dropout off."""
+        ``deterministic`` (the reference's flag) turns dropout off. With
+        ``shard`` (a ``parallel/dist.py::BatchShard``) the images are this
+        process's share of a global batch: dropout draws for the global
+        batch, and the global quaternion normalization divides by the norm
+        over the whole global batch (its squares summed over the group)."""
         cfg = self.cfg
         # Contiguous NCHW: the CPU convolution's backward crashes on the
         # channels-last strides a bare permute leaves.
@@ -133,7 +139,7 @@ class OdometryModel(nn.Module):
                 x = torch.cat([self._extract(x1), self._extract(x2)], dim=1)
             else:
                 x = torch.cat([x1, x2], dim=1)
-            feat = self.resnet(x, generator, deterministic)
+            feat = self.resnet(x, generator, deterministic, shard)
             if cfg.use_single_mlp:
                 out = self.fully_connected_rot_trans(feat)
                 rotation, translation = out[:, :4], out[:, 4:]
@@ -142,7 +148,10 @@ class OdometryModel(nn.Module):
                 translation = self.fully_connected_translation(feat)
         rotation = rotation.float()
         translation = translation.float()
-        if cfg.quaternion_normalization == "global":
+        if cfg.quaternion_normalization == "global" and shard is not None:
+            norm = torch.sqrt(shard.sum((rotation * rotation).sum()))
+            rotation = rotation / torch.clamp(norm, min=1e-12)
+        elif cfg.quaternion_normalization == "global":
             rotation = rotation / torch.clamp(torch.linalg.norm(rotation), min=1e-12)
         else:
             rotation = rotation / torch.clamp(

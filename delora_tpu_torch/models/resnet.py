@@ -62,13 +62,20 @@ DROPOUT_RATE = 0.2
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-            channels: bool = False) -> torch.Tensor:
+            channels: bool = False, shard=None) -> torch.Tensor:
     """Flax's ``nn.Dropout``: keep each element (or, with ``channels``, each
     [batch, channel] plane of an NCHW tensor) with probability 1 - rate and
-    divide the survivors by 1 - rate; the rest are 0."""
+    divide the survivors by 1 - rate; the rest are 0. With ``shard`` (a
+    ``parallel/dist.py::BatchShard``) ``x`` is this process's share of a
+    global batch: the mask is drawn for the global batch and its share
+    kept, so the processes together draw what one process would."""
     keep = 1.0 - rate
     shape = x.shape[:2] + (1,) * (x.dim() - 2) if channels else x.shape
+    if shard is not None:
+        shape = (shape[0] * shard.count,) + tuple(shape[1:])
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = shard.rows(mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -148,23 +155,24 @@ class CircularResNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = False) -> torch.Tensor:
+                deterministic: bool = False, shard=None) -> torch.Tensor:
         """x: [B, C, H, W] -> [B, num_outputs]; ``generator`` draws the
         dropout masks (needed when dropout is active: ``use_dropout``, training
-        mode and not ``deterministic``)."""
+        mode and not ``deterministic``), for the global batch of which ``x``
+        is the ``shard`` when one is given (see :func:`dropout`)."""
         drop = self.use_dropout and self.training and not deterministic
         if drop and generator is None:
             raise ValueError("dropout in training mode needs a torch.Generator")
         if drop:
-            x = dropout(x, DROPOUT_RATE, generator)
+            x = dropout(x, DROPOUT_RATE, generator, shard=shard)
         x = self.act(self.conv1(x))
         # 3x3 max-pool, stride (1, 2): rows padded with -inf, azimuth wrapped.
         x = F.max_pool2d(pad_circular_w(x, 1, 1, -math.inf), 3, stride=(1, 2))
         x = self._stage(self.layer3, self._stage(self.layer2, self._stage(self.layer1, x)))
         if drop:
-            x = dropout(x, DROPOUT_RATE, generator, channels=True)
+            x = dropout(x, DROPOUT_RATE, generator, channels=True, shard=shard)
         out = self.fc(self._stage(self.layer4, x).mean(dim=(2, 3)))
-        return dropout(out, DROPOUT_RATE, generator) if drop else out
+        return dropout(out, DROPOUT_RATE, generator, shard=shard) if drop else out
 
     def _stage(self, layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
         for block in layer:

@@ -11,6 +11,12 @@ and the dropout generator where the run has them), with tensors on the CPU;
 ``parameters`` is the run's config made JSON-safe. Files are written to a
 temporary name and renamed, so a reader never sees half of one, and read with
 ``weights_only=True``.
+
+Under data parallelism (``parallel/dist.py``) every process calls ``save``
+and ``save_named``, as the reference's multi-process contract asks; process
+0 alone touches the filesystem, fenced by barriers before and after, so no
+process reads a checkpoint that is being written. Every process restores the
+same file.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from delora_tpu_torch.parallel.dist import barrier, rank
 
 
 def _json_safe(config: Mapping[str, Any]) -> Dict[str, Any]:
@@ -56,6 +64,7 @@ class CheckpointManager:
     def __init__(self, directory: str, keep_every: int = 5):
         self.directory = os.path.abspath(directory)
         self.keep_every = keep_every
+        self.writes = 0                 # checkpoint files this process wrote
         os.makedirs(self.directory, exist_ok=True)
 
     def path(self, name: str) -> str:
@@ -67,29 +76,40 @@ class CheckpointManager:
         tmp = target + ".tmp"
         torch.save({"state": _cpu(state), "meta": meta}, tmp)
         os.replace(tmp, target)
+        self.writes += 1
         return target
 
     @staticmethod
     def _meta(epoch: int, loss: float, config: Mapping[str, Any]) -> Dict[str, Any]:
         return {"epoch": int(epoch), "loss": float(loss), "parameters": _json_safe(config)}
 
-    def save(self, state, epoch: int, loss: float, config: Mapping[str, Any]) -> None:
+    def save(self, state, epoch: int, loss: float, config: Mapping[str, Any]) -> bool:
         """Overwrite ``latest``; keep a copy ``epoch_NNNNN`` on every
-        ``keep_every``-th epoch."""
-        latest = self._write("latest", state, self._meta(epoch, loss, config))
-        if self.keep_every and epoch % self.keep_every == 0:
-            durable = self.path(f"epoch_{epoch:05d}")
-            shutil.copyfile(latest, durable + ".tmp")
-            os.replace(durable + ".tmp", durable)
+        ``keep_every``-th epoch. -> whether this process wrote (process 0)."""
+        barrier()
+        wrote = rank() == 0
+        if wrote:
+            latest = self._write("latest", state, self._meta(epoch, loss, config))
+            if self.keep_every and epoch % self.keep_every == 0:
+                durable = self.path(f"epoch_{epoch:05d}")
+                shutil.copyfile(latest, durable + ".tmp")
+                os.replace(durable + ".tmp", durable)
+        barrier()
+        return wrote
 
     def save_named(self, state, name: str, epoch: int, loss: float,
                    config: Mapping[str, Any], extra_meta: Optional[Dict[str, Any]] = None
-                   ) -> None:
+                   ) -> bool:
         """Overwrite the checkpoint ``name`` (for example ``best``), its meta
-        extended by ``extra_meta``."""
-        meta = self._meta(epoch, loss, config)
-        meta.update(extra_meta or {})
-        self._write(name, state, meta)
+        extended by ``extra_meta``. -> whether this process wrote."""
+        barrier()
+        wrote = rank() == 0
+        if wrote:
+            meta = self._meta(epoch, loss, config)
+            meta.update(extra_meta or {})
+            self._write(name, state, meta)
+        barrier()
+        return wrote
 
     def restore(self, name: str = "latest") -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """-> (state, meta) of the checkpoint ``name``: meta holds

@@ -60,7 +60,7 @@ model only.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -89,12 +89,14 @@ from delora_tpu_torch.ops.projection import (
 
 def forward_pose(model, image_1: torch.Tensor, image_2: torch.Tensor,
                  quat_also: bool = False, generator: Optional[torch.Generator] = None,
-                 deterministic: bool = False):
+                 deterministic: bool = False, shard=None):
     """Model forward on ``[B, H, W, C]`` image pairs -> ``[B, 4, 4]``
     transforms (and the raw translation and quaternion if ``quat_also``);
     ``generator`` draws the dropout masks of a model in training mode, and
-    ``deterministic`` turns its dropout off for this call."""
-    translation, quat = model(image_1, image_2, generator, deterministic)
+    ``deterministic`` turns its dropout off for this call; ``shard`` (a
+    ``parallel/dist.py::BatchShard``) says the images are one process's share
+    of a global batch."""
+    translation, quat = model(image_1, image_2, generator, deterministic, shard)
     T = se3.transform_from_quat(translation, quat)
     if quat_also:
         return T, translation, quat
@@ -121,6 +123,10 @@ class StepConfig(NamedTuple):
     soft_match_sigma: float = 0.0
     # > 0: weight of the reverse point-to-plane term (image matcher only).
     lambda_rev_po2pl: float = 0.0
+    # This process's share of the global batch under data parallelism (a
+    # parallel/dist.py::BatchShard; the trainer sets it in a process group),
+    # else None.
+    shard: Optional[Any] = None
 
     @classmethod
     def from_config(cls, config, dataset: str = "kitti", *, supervised: bool):
@@ -281,7 +287,7 @@ def _loss_tail(model, image_1, target_normal_image, image_2, pts_c, nrm_c, src_v
     spec = cfg.proj
     H, W = spec.height, spec.width
     T = forward_pose(model, image_1, image_2, generator=generator,
-                     deterministic=cfg.deterministic)
+                     deterministic=cfg.deterministic, shard=cfg.shard)
     B = T.shape[0]
     rev_po2pl = None
     placement_overflow = T.new_zeros(())
@@ -506,17 +512,34 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     ``ema`` (a ``training/state.py::ParamEma``) folds in the updated
     parameters; ``generator`` draws the dropout masks. With ``cfg.augment``
     the source is rotated by ``rotations`` [B, 3, 3], else by rotations drawn
-    from ``augment_generator`` (:func:`augment_rotations`)."""
+    from ``augment_generator`` (:func:`augment_rotations`).
+
+    Data-parallel when ``cfg.shard`` is set: ``batch`` (and ``rotations``,
+    when given) is this process's share of the global batch, the rotations
+    are drawn for the global batch and this process keeps its rows, and the
+    gradients and the metrics are averaged over the group before
+    ``grad_norm`` and Adam (the counts summed), so every process holds the
+    global step's values and applies the same update. Each process's loss is
+    the mean of its pairs' per-pair means, so the mean over processes is the
+    global mean."""
+    shard = cfg.shard
     optimizer.zero_grad(set_to_none=True)
     if cfg.augment and rotations is None:
         if augment_generator is None:
             raise ValueError("augmentation is on: train_step needs rotations or an "
                              "augment_generator")
-        rotations = augment_rotations(cfg, batch[0].shape[0], augment_generator)
+        if shard is None:
+            rotations = augment_rotations(cfg, batch[0].shape[0], augment_generator)
+        else:
+            rotations = shard.rows(augment_rotations(cfg, batch[0].shape[0] * shard.count,
+                                                     augment_generator))
     loss, metrics = _LOSS_FNS[type(batch)](model, batch, cfg, generator, rotations)
     loss.backward()
-    metrics["grad_norm"] = optax_global_norm(
-        [p.grad for p in model.parameters() if p.grad is not None])
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if shard is not None:
+        shard.mean_(grads)
+        metrics = shard.reduce_metrics(metrics)
+    metrics["grad_norm"] = optax_global_norm(grads)
     optimizer.step()
     if schedule is not None:
         schedule.step()

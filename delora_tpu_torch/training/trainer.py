@@ -61,6 +61,27 @@ images are skipped and nothing is computed.
 A plain Python loop takes the steps: the reference's ``lax.scan`` over
 ``steps_per_dispatch`` steps only amortizes the TPU's dispatch round trip, so
 the port does not read that key.
+
+Under data parallelism (a ``torch.distributed`` group joined before the
+trainer is made, ``parallel/dist.py``; one process a device) the same trainer
+runs on every process, as the reference's runs on every host
+(trainer.py:95-100, :137-233, :264-266, :593-605):
+
+- ``batch_size`` stays the global batch (the learning-rate scaling and the
+  reported pairs/s read it); each process steps on its share, rows ``rank``,
+  ``rank + world``, ... of every global batch, through
+  ``training/step.py::train_step`` with ``StepConfig.shard`` set, so every
+  metric, the warmup switch included, is the global step's on every process;
+- streamed batches come from a ``BatchLoader`` shard a process; device
+  tables are resident when every scan fits ``hbm_cache_scans`` times the
+  world size (the budget is a process's), and are then split over the
+  processes (``parallel/step.py::ShardedTables``), each step's rows sent by
+  their owners;
+- every process saves (process 0 writes, ``training/checkpoint.py``) and
+  restores the same checkpoint, and rank 0's state is broadcast after the
+  set-up; processes other than 0 log their metrics to the run
+  ``<run>-proc<rank>``;
+- evaluation and image logging run with a single process only.
 """
 
 from __future__ import annotations
@@ -88,6 +109,8 @@ from delora_tpu_torch.ops.projection import (
     project_image_packed_batch,
 )
 from delora_tpu_torch.ops.projection_host import ScanArtifacts, scan_artifacts_np
+from delora_tpu_torch.parallel import dist as pdist
+from delora_tpu_torch.parallel.step import ShardedTables, broadcast_state
 from delora_tpu_torch.training.checkpoint import CheckpointManager
 from delora_tpu_torch.training.state import (
     deploy_model,
@@ -172,14 +195,24 @@ def training_panels(model: torch.nn.Module, pair, spec: ProjectionSpec,
             wimg[..., 3:6])
 
 
+# Per feed: the table leaves of a pair's target row and of its source row, in
+# the order of the batch's fields, and the batch type.
+BATCH_LEAVES = {
+    "full": ((0, 1, 2), (0, 3, 4, 5, 2), FullyCachedBatch),
+    "cached": ((0, 1, 2), (3, 4, 5), CachedTargetBatch),
+    "raw": ((0, 1, 2), (0, 1, 2), ScanPairBatch),
+}
+
+
 class PairFeed(NamedTuple):
     """One dataset's scan pairs on the trainer: device ``tables`` (full feed:
     ``ScanArtifacts`` of every scan; raw feed: (points, normals, valid);
-    cached feed: (image, normal_image, mean_range, points, normals, valid))
-    with each pair's target and source rows, or a host ``loader``."""
+    cached feed: (image, normal_image, mean_range, points, normals, valid);
+    split over the processes under data parallelism) with each pair's target
+    and source rows, or a host ``loader``."""
 
     spec: ProjectionSpec
-    tables: Optional[Union[ScanArtifacts, tuple]] = None
+    tables: Optional[Union[ScanArtifacts, tuple, ShardedTables]] = None
     pair_target: Optional[np.ndarray] = None
     pair_source: Optional[np.ndarray] = None
     loader: Optional[BatchLoader] = None
@@ -208,6 +241,10 @@ class Trainer:
         self.datasets = [dataset] if sequences is not None else list(config["datasets"])
         self.dataset = self.datasets[0]
         self.batch_size = int(config["batch_size"])
+        self.world, self.rank = pdist.world_size(), pdist.rank()
+        if self.batch_size % self.world:
+            raise ValueError(f"batch_size {self.batch_size} must divide evenly across "
+                             f"{self.world} processes")
         self.seed = int(config.get("seed", 0))
         self.supervised = not bool(config["unsupervised_at_start"])
         self.feed = training_feed(config)
@@ -236,8 +273,10 @@ class Trainer:
             self.feeds = self._disk_feeds()
             self.ckpt = CheckpointManager(config.get("checkpoint_dir", "./checkpoints_tpu"),
                                           keep_every=int(config.get("checkpoint_keep_every", 5)))
+            # One metrics stream a process; process 0 holds the run's own.
+            log_run = self.run_name if self.rank == 0 else f"{self.run_name}-proc{self.rank}"
             self.logger = MetricsLogger(config.get("log_dir", "./runs"),
-                                        config.get("experiment", "default"), self.run_name,
+                                        config.get("experiment", "default"), log_run,
                                         use_mlflow=bool(config.get("use_mlflow", False)))
             self.logger.log_params(self.config)
         self.start_epoch = 0
@@ -245,6 +284,8 @@ class Trainer:
         self.last_steps: Dict[str, np.ndarray] = {}
         if self.ckpt is not None:
             self._resume()
+        broadcast_state(self.model, self.optimizer, self.schedule, self.ema,
+                        (self.dropout_generator, self.augment_generator))
         # Host seconds of the set-up: model, data, tables, resume.
         self.setup_seconds = time.perf_counter() - t0
 
@@ -252,13 +293,15 @@ class Trainer:
 
     def _tables(self, rows: List[tuple]):
         """Stack each leaf of the per-scan ``rows`` over all scans, on the
-        device (mean ranges, Python floats, as float32)."""
+        device (mean ranges, Python floats, as float32); split over the
+        processes under data parallelism."""
         leaves = []
         for leaf in zip(*rows):
             arr = np.stack([np.asarray(x) for x in leaf])
-            if arr.dtype == np.float64:
-                arr = arr.astype(np.float32)
-            leaves.append(torch.from_numpy(arr).to(self.device))
+            leaves.append(arr.astype(np.float32) if arr.dtype == np.float64 else arr)
+        if pdist.active():
+            return ShardedTables(leaves, self.device)
+        leaves = [torch.from_numpy(arr).to(self.device) for arr in leaves]
         return ScanArtifacts(*leaves) if self.feed == "full" else tuple(leaves)
 
     def _memory_feed(self, sequences: Sequence[Sequence[Scan]], dataset: str) -> PairFeed:
@@ -299,11 +342,12 @@ class Trainer:
             print(f"[trainer] prewarmed {n} scan projections in {time.time() - t0:.1f}s "
                   f"({threads} threads)", flush=True)
         total = sum(len(ds.scan_keys()) for ds in data.values())
+        # A process's budget: the tables split over the processes.
         budget = int(config.get("hbm_cache_scans", 3072))
-        resident = self.feed == "full" and 0 < budget and total <= budget
+        resident = self.feed == "full" and 0 < budget and total <= budget * self.world
         if self.feed == "full" and not resident:
-            print(f"[trainer] dataset ({total} scans) exceeds hbm_cache_scans={budget}; "
-                  f"streaming from host", flush=True)
+            print(f"[trainer] dataset ({total} scans) exceeds hbm_cache_scans={budget} x "
+                  f"{self.world} processes; streaming from host", flush=True)
         feeds = {}
         t0 = time.time()
         for name, ds in data.items():
@@ -319,10 +363,12 @@ class Trainer:
                 feeds[name] = PairFeed(spec, loader=BatchLoader(
                     ds, self.batch_size, device=self.device, seed=self.seed,
                     prefetch=max(1, int(config.get("prefetch_depth", 2))), feed=self.feed,
-                    native=config.get("native_io", "auto")))
+                    native=config.get("native_io", "auto"), num_shards=self.world,
+                    shard_index=self.rank))
         if resident:
             print(f"[trainer] {total} scans resident in device memory "
-                  f"({time.time() - t0:.1f}s one-time transfer)", flush=True)
+                  f"({time.time() - t0:.1f}s one-time transfer; {self.world} process "
+                  f"shard(s))", flush=True)
         return feeds
 
     @property
@@ -337,23 +383,35 @@ class Trainer:
 
     def batch(self, tgt: torch.Tensor, src: torch.Tensor, dataset: Optional[str] = None
               ) -> Union[FullyCachedBatch, CachedTargetBatch, ScanPairBatch]:
-        """Gather the batch of pairs (tgt[i], src[i]) from the device tables."""
+        """Gather the batch of pairs (tgt[i], src[i]) from the device tables
+        of a single process."""
         t = self.feeds[dataset or self.dataset].tables
-        if self.feed == "raw":
-            return ScanPairBatch(*(x[tgt] for x in t), *(x[src] for x in t))
-        if self.feed == "cached":
-            return CachedTargetBatch(*(x[tgt] for x in t[:3]), *(x[src] for x in t[3:]))
-        return FullyCachedBatch(t.image[tgt], t.normal_image[tgt], t.mean_range[tgt],
-                                t.image[src], t.src_points[src], t.src_normals[src],
-                                t.src_valid[src], t.mean_range[src])
+        tgt_leaves, src_leaves, kind = BATCH_LEAVES[self.feed]
+        return kind(*(t[i][tgt] for i in tgt_leaves), *(t[i][src] for i in src_leaves))
+
+    def sharded_batch(self, tgt: np.ndarray, src: np.ndarray, dataset: Optional[str] = None
+                      ) -> Union[FullyCachedBatch, CachedTargetBatch, ScanPairBatch]:
+        """Collective: this process's share of the global batch of pairs
+        (tgt[i], src[i]) from the tables split over the processes."""
+        tables = self.feeds[dataset or self.dataset].tables
+        tgt_leaves, src_leaves, kind = BATCH_LEAVES[self.feed]
+        n = self.world
+        return kind(*tables.gather([tgt[r::n] for r in range(n)], tgt_leaves),
+                    *tables.gather([src[r::n] for r in range(n)], src_leaves))
 
     def batches(self, epoch: int, dataset: str):
-        """The epoch's batches of ``dataset``, on the device."""
+        """The epoch's batches of ``dataset`` (this process's shares), on the
+        device."""
         feed = self.feeds[dataset]
         if feed.loader is not None:
             yield from feed.loader.epoch(epoch)
             return
         order = self.epoch_indices(epoch, dataset).reshape(-1, self.batch_size)
+        if pdist.active():
+            for chunk in order:
+                yield self.sharded_batch(feed.pair_target[chunk], feed.pair_source[chunk],
+                                         dataset)
+            return
         tgt = torch.from_numpy(feed.pair_target[order]).to(self.device)
         src = torch.from_numpy(feed.pair_source[order]).to(self.device)
         for ti, si in zip(tgt, src):
@@ -364,7 +422,10 @@ class Trainer:
     def step(self, batch: Union[FullyCachedBatch, CachedTargetBatch, ScanPairBatch],
              cfg: StepConfig) -> Dict[str, torch.Tensor]:
         """One train step of the trainer's model, optimizer, schedule, EMA,
-        dropout and augmentation generators."""
+        dropout and augmentation generators (data-parallel over the
+        processes in a process group: ``cfg.shard`` set)."""
+        if pdist.active():
+            cfg = cfg._replace(shard=pdist.batch_shard())
         return train_step(self.model, self.optimizer, batch, cfg, self.schedule, self.ema,
                           self.dropout_generator, self.augment_generator)
 
@@ -427,7 +488,8 @@ class Trainer:
                 if epoch % every == 0 or epoch == epochs - 1:
                     self.ckpt.save(self.state_dict(), epoch, metrics["loss"], self.config)
                 viz_every = max(int(self.config.get("visualize_every_epochs", 5)), 1)
-                if self.config.get("visualize_images", True) and epoch % viz_every == 0:
+                if self.world == 1 and self.config.get("visualize_images", True) \
+                        and epoch % viz_every == 0:
                     for name in self.datasets:
                         self.log_images(epoch, name)
                 eval_every = int(self.config.get("eval_every_epochs", 0))
@@ -522,8 +584,13 @@ class Trainer:
         """The Tester's trajectory metric on the testing identifiers with the
         deploy model -> the score (the mean first metric over the sequences
         with ground truth: t_rel % for >= 100 m, else RPE m/step), or None
-        without ground truth. The best state so far is saved as ``best``."""
+        without ground truth or with more than one process (the reference
+        evaluates multi-process runs offline). The best state so far is saved
+        as ``best``."""
         from delora_tpu_torch.training.tester import Tester
+
+        if self.world > 1:
+            return None
 
         cfg = dict(self.config)
         for name in self.datasets:

@@ -7,13 +7,22 @@ from delora_tpu_torch.config import default_config
 
 
 def assert_carried_equal(port, ref, path=""):
+    """Every key the port carries equals the reference's, and every block
+    (dict) of the reference is carried whole, so a block or a key of a block
+    that the port lacks fails."""
     for key, value in port.items():
         assert key in ref, f"{path}{key} not in load_config()"
         if isinstance(value, dict):
+            assert isinstance(ref[key], dict), f"{path}{key}: not a block in load_config()"
+            assert value.keys() == ref[key].keys(), (
+                f"{path}{key}: keys {sorted(value)} != {sorted(ref[key])}")
             assert_carried_equal(value, ref[key], f"{path}{key}.")
         else:
             assert value == ref[key], f"{path}{key}: {value!r} != {ref[key]!r}"
             assert type(value) is type(ref[key]), f"{path}{key}: type differs"
+    for key, value in ref.items():
+        if isinstance(value, dict):
+            assert key in port, f"{path}{key}: block of load_config() missing from the port"
 
 
 OVERRIDES = {
@@ -24,6 +33,8 @@ OVERRIDES = {
     "fov": {"horizontal_field_of_view": [-90.0, 90.0],
             "kitti": {"vertical_field_of_view": [-20.0, 5.0]},
             "activation_fct": "relu", "quaternion_normalization": "global"},
+    "darpa": {"datasets": ["darpa"]},
+    "both": {"datasets": ["kitti", "darpa"], "darpa": {"vertical_field_of_view": [-15.0, 15.0]}},
 }
 
 
@@ -52,15 +63,19 @@ def test_config_rejects_bad_values():
         default_config({"quaternion_normalization": "none"})
     with pytest.raises(ValueError):
         default_config({"native_io": "yes"})
+    with pytest.raises(ValueError):
+        default_config({"kitti": {"dataset_type": "pcap"}})
 
 
-@pytest.mark.parametrize("override", [
-    {"kitti": {"dataset_type": "rosbag"}},
-], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()).replace(" ", ""))
-def test_unported_settings_raise(override):
-    """Settings whose code the port does not have are refused, never run."""
-    with pytest.raises(NotImplementedError):
-        default_config(override)
+def test_darpa_block_equals_load_config():
+    """The rosbag-type ``darpa`` block, field for field: in degrees while
+    ``datasets`` does not list it (the reference converts listed datasets
+    only), in radians once it does."""
+    for overrides in (None, {"datasets": ["darpa"]}):
+        port, ref = default_config(overrides)["darpa"], load_config(overrides)["darpa"]
+        assert port == ref and port["dataset_type"] == "rosbag"
+        assert port["topic"] == "/sherman/lidar_points" and port["pose_data_path"] is None
+    assert default_config()["darpa"]["vertical_field_of_view"] == [-22.5, 22.5]
 
 
 @pytest.mark.parametrize("override", [
@@ -77,13 +92,14 @@ def test_unported_settings_raise(override):
     {"remat": True},
     {"native_io": True},
     {"profile_epochs": [1]},
-], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+    {"kitti": {"dataset_type": "rosbag"}},
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()).replace(" ", ""))
 def test_ported_settings_are_accepted_and_run(override):
     """The quality recipe's settings, brute and projective correspondence,
     augmentation, the raw and the cached-target feeds
     (``cache_source_projections: false``), ``fused_adam``, ``remat``,
-    ``native_io`` and ``profile_epochs`` pass validation and train: one epoch
-    of a tiny world on the CPU."""
+    ``native_io``, ``profile_epochs`` and a rosbag-type dataset pass
+    validation and train: one epoch of a tiny world on the CPU."""
     import numpy as np
     import torch
 
@@ -91,7 +107,8 @@ def test_ported_settings_are_accepted_and_run(override):
     from tests.test_torch_trainer import SMALL, tiny_world
 
     config = default_config({**SMALL, **override})
-    assert all(config[k] == v for k, v in override.items())
+    assert all(config[k].items() >= v.items() if isinstance(v, dict) else config[k] == v
+               for k, v in override.items())
     trainer = Trainer(config, tiny_world([3]), device="cpu",
                       generator=torch.Generator().manual_seed(0))
     metrics = trainer.train_epoch(0)

@@ -30,7 +30,10 @@ def test_port_files_found():
                    "data/dataset.py", "training/checkpoint.py", "training/tester.py", "cli.py",
                    "se3.py", "models/odometry.py", "config.py", "data/native_io.py",
                    "data/synthetic.py", "utils/torch_import.py", "utils/profiling.py",
-                   "utils/plotting.py", "utils/visualize_normals.py"):
+                   "utils/plotting.py", "utils/visualize_normals.py", "parallel/dist.py",
+                   "parallel/step.py", "parallel/multiprocess.py", "data/rosbag.py",
+                   "data/export_sequence.py", "serving/ros_bridge.py",
+                   "serving/ros_stubs.py"):
         assert ROOT / "delora_tpu_torch" / module in PORT_FILES, module
 
 

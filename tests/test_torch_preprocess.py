@@ -141,46 +141,55 @@ def test_same_scans_written(preprocessed):
     assert set(pre.seconds) == {"read", "device", "write"}
 
 
+def check_normals(out, ref, points, scan, config, dataset, monkeypatch):
+    """One scan's normal files against the reference's (see the module
+    docstring): ``points`` are the raw points the preprocessor staged (at
+    most its capacity), ``scan`` the scan file. -> the count of normals held
+    to 4e-6 * kappa."""
+    spec = tnormals.NormalsSpec.from_config(config, dataset)
+    pspec = ProjectionSpec.from_config(config, dataset, preprocessing=True)
+    capacity = staging_capacity(config, dataset, pspec)
+    assert out.shape == ref.shape == scan.shape
+    has = (ref != 0).any(-1)
+    np.testing.assert_array_equal((out != 0).any(-1), has)
+    assert has.mean() > 0.5
+    # Each survivor's pixel and the covariance the port's solver saw there.
+    pts = points[:capacity, :3]
+    padded = torch.zeros(1, capacity, 3)
+    padded[0, :len(pts)] = torch.from_numpy(pts)
+    valid = torch.zeros(1, capacity, dtype=torch.bool)
+    valid[0, :len(pts)] = True
+    proj = project_scan_batch(padded, valid, pspec)
+    seen = []
+    solver = tnormals.smallest_eigenvector_sym3x3
+    monkeypatch.setattr(tnormals, "smallest_eigenvector_sym3x3",
+                        lambda A, eps=1e-20: seen.append(A) or solver(A, eps))
+    tnormals.compute_normal_image(proj.image[0, ..., :3], spec)
+    monkeypatch.undo()
+    w = np.linalg.eigvalsh(seen[0].numpy().astype(np.float64)).reshape(-1, 3)
+    kappa = np.abs(w).max(-1) / np.maximum(w[:, 1] - w[:, 0], 1e-30)
+    surv = proj.survivor[0].numpy()
+    u = np.clip(np.round(proj.u[0].numpy()[surv]).astype(int), 0, pspec.width - 1)
+    v = np.clip(np.round(proj.v[0].numpy()[surv]).astype(int), 0, pspec.height - 1)
+    kappa = kappa[v * pspec.width + u]
+    held = has & (kappa <= 300.0)
+    diff = np.abs(out - ref).max(-1)
+    assert (diff[held] <= 4e-6 * kappa[held]).all(), f"worst {diff[held].max()}"
+    np.testing.assert_allclose(np.linalg.norm(out[has], axis=-1), 1.0, atol=1e-5)
+    assert ((out * scan).sum(-1)[has] <= 1e-4).all()
+    return held.sum()
+
+
 def test_normals_match_the_reference(preprocessed, monkeypatch):
     root, config, _, _, _ = preprocessed
-    spec = tnormals.NormalsSpec.from_config(config, "kitti")
-    pspec = ProjectionSpec.from_config(config, "kitti", preprocessing=True)
-    capacity = staging_capacity(config, "kitti", pspec)
     raw = files(root, "raw/00/velodyne/*.bin")
     held_total = 0
     for k, (a, b) in enumerate(zip(files(root, "preprocessed/00/normals/*.npy"),
                                    files(root, "reference/00/normals/*.npy"))):
-        out, ref = np.load(a), np.load(b)
-        assert out.shape == ref.shape == np.load(a.replace("normals", "scans")).shape
-        has = (ref != 0).any(-1)
-        np.testing.assert_array_equal((out != 0).any(-1), has)
-        assert has.mean() > 0.5
-        # Each survivor's pixel and the covariance the port's solver saw there.
-        pts = np.fromfile(raw[k], np.float32).reshape(-1, 4)[:capacity, :3]
-        padded = torch.zeros(1, capacity, 3)
-        padded[0, :len(pts)] = torch.from_numpy(pts)
-        valid = torch.zeros(1, capacity, dtype=torch.bool)
-        valid[0, :len(pts)] = True
-        proj = project_scan_batch(padded, valid, pspec)
-        seen = []
-        solver = tnormals.smallest_eigenvector_sym3x3
-        monkeypatch.setattr(tnormals, "smallest_eigenvector_sym3x3",
-                            lambda A, eps=1e-20: seen.append(A) or solver(A, eps))
-        tnormals.compute_normal_image(proj.image[0, ..., :3], spec)
-        monkeypatch.undo()
-        w = np.linalg.eigvalsh(seen[0].numpy().astype(np.float64)).reshape(-1, 3)
-        kappa = np.abs(w).max(-1) / np.maximum(w[:, 1] - w[:, 0], 1e-30)
-        surv = proj.survivor[0].numpy()
-        u = np.clip(np.round(proj.u[0].numpy()[surv]).astype(int), 0, pspec.width - 1)
-        v = np.clip(np.round(proj.v[0].numpy()[surv]).astype(int), 0, pspec.height - 1)
-        kappa = kappa[v * pspec.width + u]
-        held = has & (kappa <= 300.0)
-        held_total += held.sum()
-        diff = np.abs(out - ref).max(-1)
-        assert (diff[held] <= 4e-6 * kappa[held]).all(), f"scan {k}: worst {diff[held].max()}"
-        np.testing.assert_allclose(np.linalg.norm(out[has], axis=-1), 1.0, atol=1e-5)
-        scan = np.load(a.replace("normals", "scans"))
-        assert ((out * scan).sum(-1)[has] <= 1e-4).all()
+        pts = np.fromfile(raw[k], np.float32).reshape(-1, 4)
+        held_total += check_normals(np.load(a), np.load(b), pts,
+                                    np.load(a.replace("normals", "scans")), config, "kitti",
+                                    monkeypatch)
     assert held_total > 0.7 * sum(
         (np.load(f) != 0).any(-1).sum() for f in files(root, "reference/00/normals/*.npy"))
 
