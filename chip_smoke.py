@@ -158,11 +158,22 @@ exits non-zero without printing a result:
    are exact (one packed placement and one matcher a step, on every rank),
    rank 0 alone writes the checkpoints, and every rank resumes with the
    saved weights; pairs/s by epoch, the two processes' labelled as sharing
-   one card. Also in phase 4f: the 1-NN's
+   one card;
+13. the bench: ``python -m delora_tpu_torch.cli bench 8 20`` in a fresh
+   process (its stderr relayed here), its last line parsed: every key of
+   ``bench.JSON_KEYS``, the numbers finite, the headline > 0, both p50s under
+   the 100 ms scan period, 0 < ``mfu`` <= 1, the four
+   ``kernel_parity_max_abs_diff`` rows 0.0, no overflowing tile, and
+   ``flops_per_step`` equal to FlopCounterMode's count of a headline step
+   here and to the closed form over the model's Conv2d and Linear shapes
+   (forward 2 x MACs, backward twice that less the first layer's input
+   gradient); then the headline once more in this process (2 x 32 warm-up
+   and 160 timed steps), one packed placement and one matcher launch a step.
+   Also in phase 4f: the 1-NN's
    library yardstick ``torch.cdist(s, t).min(-1)`` at B = 1 (24.2 GB of
    distances; at B = 8 it would need 193 GB and is not run).
 
-Each path of phases 5-12 is driven with every kernel's launch count set to 0
+Each path of phases 5-13 is driven with every kernel's launch count set to 0
 just before it and read just after; the placement wrapper counts its exact
 and its packed rule apart. A path fails unless each of its kernels launched
 as often as the path should launch it and every other kernel not at all.
@@ -2947,6 +2958,101 @@ def run_seventh_slice(scans, card) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 13: the bench (``delora_tpu_torch/bench.py``) through ``python -m
+# delora_tpu_torch.cli bench`` in a fresh process at full width, then its
+# headline once more in this process with exact launch counts.
+BENCH_B, BENCH_K = 8, 20
+SCAN_PERIOD_MS = 100.0
+BENCH_TIMEOUT = 600.0
+
+
+def closed_form_flops(convs, linears) -> int:
+    """Forward 2 x MACs of every Conv2d and Linear; backward twice that, less
+    the first layer's input gradient (the images carry no gradient)."""
+    forward = [2 * out.numel() * m.in_channels // m.groups * math.prod(m.kernel_size)
+               for m, out in convs]
+    forward += [2 * inp.numel() * m.out_features for m, inp in linears]
+    return 3 * sum(forward) - forward[0]
+
+
+def counted_flops(b) -> tuple:
+    """(FlopCounterMode's count of one headline step, the closed form over
+    the shapes that step's Conv2d and Linear layers saw)."""
+    convs, linears = [], []
+
+    def hook(module, inputs, output):
+        if isinstance(module, torch.nn.Conv2d):
+            convs.append((module, output))
+        else:
+            linears.append((module, inputs[0]))
+
+    handles = [m.register_forward_hook(hook) for m in b.model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        flops = b.step_flops()
+    finally:
+        for h in handles:
+            h.remove()
+    return flops, closed_form_flops(convs, linears)
+
+
+def run_bench(card) -> None:
+    """Phase 13 (see the module docstring)."""
+    import os
+
+    from delora_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    command = [sys.executable, "-m", "delora_tpu_torch.cli", "bench", str(BENCH_B),
+               str(BENCH_K)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, cwd=root, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        say(f"bench stderr: {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(command[1:])} exited {proc.returncode}; stdout tail: "
+                           f"{proc.stdout[-2000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(f"bench ({' '.join(command[2:])}, a fresh process, {wall:.1f} s with start-up): "
+        f"{json.dumps(result)} on {card}")
+    if tuple(result) != bench.JSON_KEYS:
+        raise RuntimeError(f"bench: keys {list(result)}, expected {list(bench.JSON_KEYS)}")
+    numbers = [result[k] for k in bench.JSON_KEYS
+               if k not in ("metric", "unit", "kernel_parity_max_abs_diff")]
+    if not all(isinstance(x, (int, float)) and math.isfinite(x) for x in numbers) \
+            or result["value"] <= 0:
+        raise RuntimeError(f"bench: a number is not finite, or the headline is not > 0: {result}")
+    if not (result["inference_p50_ms"] < SCAN_PERIOD_MS and
+            result["serving_p50_ms"] < SCAN_PERIOD_MS):
+        raise RuntimeError(f"bench: p50s {result['inference_p50_ms']} and "
+                           f"{result['serving_p50_ms']} ms, limit the {SCAN_PERIOD_MS} ms scan "
+                           f"period")
+    if not 0 < result["mfu"] <= 1:
+        raise RuntimeError(f"bench: mfu {result['mfu']} outside (0, 1]")
+    parity = result["kernel_parity_max_abs_diff"]
+    rows = ("placement_packed", "placement_compact", "window_matcher", "window_matcher_soft")
+    if parity is None or sorted(parity) != sorted(rows) or any(parity[r] != 0.0 for r in rows):
+        raise RuntimeError(f"bench: kernel parity {parity}, expected 0.0 in each of {rows}")
+    if result["augment_overflow_tiles"] != 0:
+        raise RuntimeError(f"bench: {result['augment_overflow_tiles']} overflowing tiles")
+
+    b = bench.Bench(BENCH_B, BENCH_K, "cuda")
+    flops, closed = counted_flops(b)
+    if not result["flops_per_step"] == flops == closed:
+        raise RuntimeError(f"bench: flops_per_step {result['flops_per_step']}, FlopCounterMode "
+                           f"here {flops}, the closed form over the layers' shapes {closed}")
+    reset_launches()
+    rate, steps, step_s = b.headline()
+    launched = path_launches("bench", {"placement_packed": steps, "window_match": steps})
+    say(f"bench headline in this process: {steps} steps (warm-up included), {rate:.1f} pairs/s "
+        f"({step_s * 1e3:.2f} ms a timed step); launches {launched}; flops_per_step "
+        f"{flops} = FlopCounterMode here = the closed form; on {card}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
@@ -3046,6 +3152,9 @@ def main() -> None:
 
     # Phase 12: the ROS bridge, a rosbag-type dataset, data-parallel training.
     run_seventh_slice(scans, card)
+
+    # Phase 13: the bench, in a fresh process and its headline here.
+    run_bench(card)
 
     def row(name_, source, replaces, err, t):
         by_path = {path: counts[name_] for path, counts in PATH_LAUNCHES.items()

@@ -15,12 +15,12 @@ the scan-pair dataset (``data/dataset.py``, with the C++ pair batcher of
 weights in the original DeLORA ``.pth`` layout (``utils/torch_import.py``);
 the synthetic drive writer (``data/synthetic.py``); profiling and plots; the
 command line ``python -m delora_tpu_torch.cli
-preprocess|train|test|serve|export-torch|visualize-normals`` with JSON
+preprocess|train|test|serve|export-torch|visualize-normals|bench`` with JSON
 ``--config`` files; data-parallel training over ``torch.distributed``
 (``parallel/``); rosbag datasets, the bag exporter and the ROS bridge
 (``data/rosbag.py``, ``data/export_sequence.py``,
 ``serving/ros_bridge.py``; ``serving/ros_stubs.py`` stands in for ROS where
-it is not installed).
+it is not installed); and the bench (``bench.py``, ``cli bench``).
 """
 
 from __future__ import annotations

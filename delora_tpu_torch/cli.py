@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m delora_tpu_torch.cli
-preprocess|train|test|serve|export-torch|visualize-normals``.
+preprocess|train|test|serve|export-torch|visualize-normals|bench``.
 
 The port of ``delora_tpu/cli.py``. ``--config FILE...`` (JSON) replaces the
 packaged defaults with the files, deep-merged in order, as the reference's
@@ -15,7 +15,15 @@ DeLORA ``.pth`` layout (reference cli.py:105-135); ``visualize-normals``
 renders a preprocessed scan's normals. Every command runs on CUDA unless
 given ``--device cpu``. ``train`` runs data-parallel under ``torchrun
 --nproc_per_node N``: one process a card (``cuda:LOCAL_RANK``, NCCL), or
-processes on the CPU over gloo with ``--device cpu``. Not ported: ``bench``.
+processes on the CPU over gloo with ``--device cpu``. ``bench [B] [K]``
+runs ``bench.py``'s measurements on the card in this process
+(``delora_tpu_torch/bench.py``; the reference starts the root ``bench.py``
+in a subprocess) and prints its one JSON line: the main path's train-step
+throughput, the inference and serving p50s, FLOPs a step and MFU against the
+card's dense bf16 peak (989.4 TFLOP/s for the H100 SXM5 at 700 W, else
+``BENCH_PEAK_TFLOPS``), and ``kernel_parity_max_abs_diff``, the reference's
+``pallas_parity_max_abs_diff`` renamed: each CUDA kernel against its plain
+version on the card.
 """
 
 from __future__ import annotations
@@ -134,6 +142,12 @@ def cmd_visualize_normals(args):
     return render(args.sequence_dir, args.scan, args.out)
 
 
+def cmd_bench(args):
+    from delora_tpu_torch.bench import main as bench_main
+
+    return bench_main([str(args.batch), str(args.steps)], device=args.device)
+
+
 def cmd_serve(args):
     from delora_tpu_torch.serving.stream import StreamingOdometry
 
@@ -145,7 +159,8 @@ def cmd_serve(args):
 
 def main(argv: Optional[list] = None):
     """Parse ``argv`` and run the command -> what the command returns (the
-    Preprocessor, the Trainer, the test results, the written path)."""
+    Preprocessor, the Trainer, the test results, the written path, the
+    bench's JSON line as a dict)."""
     parser = argparse.ArgumentParser(prog="python -m delora_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -187,6 +202,13 @@ def main(argv: Optional[list] = None):
     p.add_argument("--scan", type=int, default=0)
     p.add_argument("--out", default=None)
     p.set_defaults(fn=cmd_visualize_normals)
+    p = sub.add_parser("bench", help="train-step throughput, latency, MFU and kernel parity "
+                                     "on one card; one JSON line on stdout")
+    p.add_argument("batch", nargs="?", type=int, default=8, help="scan pairs a step (8)")
+    p.add_argument("steps", nargs="?", type=int, default=20,
+                   help="K: steps of each timed section past the headline (20)")
+    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.set_defaults(fn=cmd_bench)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -33,7 +33,7 @@ def test_port_files_found():
                    "utils/plotting.py", "utils/visualize_normals.py", "parallel/dist.py",
                    "parallel/step.py", "parallel/multiprocess.py", "data/rosbag.py",
                    "data/export_sequence.py", "serving/ros_bridge.py",
-                   "serving/ros_stubs.py"):
+                   "serving/ros_stubs.py", "bench.py"):
         assert ROOT / "delora_tpu_torch" / module in PORT_FILES, module
 
 
