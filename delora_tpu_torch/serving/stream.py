@@ -1,10 +1,11 @@
 """Streaming odometry engine: scan in, (relative transform, accumulated pose,
 latency) out.
 
-The port of ``delora_tpu/serving/stream.py``. Each pushed scan is filtered
-(NaN, zero and range < 0.3 m points dropped), projected once on the device
-through the placement kernel, and paired with the previous scan's image, which
-stays on the device; the model's relative transform is chained by the
+The port of ``delora_tpu/serving/stream.py``. Each pushed scan is uploaded
+as it comes, masked on the device (NaN, zero and range < 0.3 m rows left out
+of the placement, as the reference's ``filter_scan`` drops them), projected
+once through the placement kernel, and paired with the previous scan's image,
+which stays on the device; the model's relative transform is chained by the
 integrator. ``serve_stdin`` speaks the same JSONL protocol as the reference.
 """
 
@@ -40,13 +41,51 @@ class OdometryIntegrator:
         return self.pose
 
 
+def _least_square(dtype) -> float:
+    """The least ``x*x + y*y + z*z`` of ``dtype`` whose correctly rounded
+    square root is at least ``MIN_RANGE`` rounded to ``dtype``."""
+    t = dtype(MIN_RANGE)
+    s = t * t
+    while np.sqrt(s) >= t:
+        s = np.nextafter(s, dtype(0))
+    while np.sqrt(s) < t:
+        s = np.nextafter(s, dtype(np.inf))
+    return float(s)
+
+
+_LEAST_SQUARE = {torch.float32: _least_square(np.float32),
+                 torch.float64: _least_square(np.float64)}
+
+
+def scan_rows(points: np.ndarray) -> np.ndarray:
+    """A raw scan ``[M, C>=3]`` as C-contiguous float32 or float64 rows (any
+    other dtype as float64, as numpy's norm takes it), copied only when it is
+    not so already."""
+    points = np.asarray(points)
+    if points.dtype != np.float32 and points.dtype != np.float64:
+        points = points.astype(np.float64)
+    return np.ascontiguousarray(points)
+
+
+def keep_mask(rows: torch.Tensor) -> torch.Tensor:
+    """``[M, C>=3]`` float32 or float64 rows -> ``[M]`` bool: the rows the
+    reference's ``filter_scan`` keeps, finite in x, y and z and at range
+    ``MIN_RANGE`` or more, bit for bit in the rows' dtype.
+
+    numpy's norm sums ``(x*x + y*y) + z*z``; here each step is its own op, so
+    no multiply-add contracts. PyTorch's square root is not correctly rounded
+    on every device, so the sum is compared with the least sum whose rounded
+    root reaches the limit: the same test, since rounding is monotonic."""
+    xyz = rows[:, :3]
+    sq = xyz * xyz
+    return torch.isfinite(xyz).all(-1) & (sq[:, 0] + sq[:, 1] + sq[:, 2]
+                                          >= _LEAST_SQUARE[rows.dtype])
+
+
 def filter_scan(points: np.ndarray) -> np.ndarray:
-    """Drop NaN/zero points and range < 0.3 m; keep x, y, z."""
-    points = points[:, :3]
-    finite = np.isfinite(points).all(axis=-1)
-    r = np.linalg.norm(points, axis=-1)
-    keep = finite & (r >= MIN_RANGE)
-    return points[keep]
+    """Drop the rows :func:`keep_mask` leaves out; keep x, y, z."""
+    points = scan_rows(points)
+    return points[:, :3][keep_mask(torch.from_numpy(points)).numpy()]
 
 
 def load_serving_checkpoint(path: str) -> Tuple[Dict, Dict[str, torch.Tensor]]:
@@ -82,6 +121,17 @@ class StreamingOdometry:
         self._prev_img = None
         self.integrator = OdometryIntegrator()
         self.step_times = {}
+        self.filter_counts = {"scans": 0, "over_max_points": 0}
+
+    def scan_mask(self, rows: torch.Tensor) -> torch.Tensor:
+        """:func:`keep_mask` of one scan's rows, less the kept rows past the
+        first ``max_points``; counts the scan in ``filter_counts``."""
+        keep = keep_mask(rows)
+        self.filter_counts["scans"] += 1
+        if rows.shape[0] > self.max_points:
+            keep &= torch.cumsum(keep, 0) <= self.max_points
+            self.filter_counts["over_max_points"] += 1
+        return keep
 
     @torch.no_grad()
     def push_scan(self, points: np.ndarray):
@@ -91,16 +141,23 @@ class StreamingOdometry:
         ``step_times`` then holds the host-clock seconds of each step of this
         call. The card runs the projection and the forward asynchronously, so
         "project" and "forward" are the host's time to issue them, and
-        "readback" waits for the card to finish both."""
+        "readback" waits for the card to finish both.
+
+        The scan goes up as it comes, in its own dtype; the rows that the
+        reference's ``filter_scan`` drops, or that pass ``max_points``, are
+        masked there (:meth:`scan_mask`), not compacted. The placement sends
+        masked rows to no pixel and keeps the lowest index among equal
+        ranges, and the kept rows keep their order, so the image (x, y, z
+        cast to float32 there, and the range) is the one of the compacted
+        scan, bit for bit. "filter" is the host's time to issue the mask."""
         t0 = time.perf_counter()
-        pts = np.ascontiguousarray(filter_scan(points)[: self.max_points], np.float32)
+        rows = torch.from_numpy(scan_rows(points)).to(self.device)
         t1 = time.perf_counter()
-        pts = torch.from_numpy(pts).to(self.device)
+        keep = self.scan_mask(rows)
         t2 = time.perf_counter()
-        valid = torch.ones(pts.shape[0], dtype=torch.bool, device=self.device)
-        img = project_image(pts, valid, self.pspec)[None]
+        img = project_image(rows[:, :3], keep, self.pspec)[None]
         t3 = time.perf_counter()
-        self.step_times = {"filter": t1 - t0, "upload": t2 - t1, "project": t3 - t2}
+        self.step_times = {"upload": t1 - t0, "filter": t2 - t1, "project": t3 - t2}
         if self._prev_img is None:
             self._prev_img = img
             return None

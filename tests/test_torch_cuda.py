@@ -723,3 +723,113 @@ def test_source_compaction_at_64x1024_bit_equal_to_plain_on_cuda(cuda, monkeypat
     assert ref_card.comp_mask.sum(1).min() > 40000
     for got, want in zip(out, ref_card):
         assert torch.equal(got, want)
+
+
+# The serving filter (``serving/stream.py``): a served scan is masked on the
+# card, not compacted on the host. The scans below are shared with the CPU
+# tests of ``tests/test_torch_serving.py``.
+
+SERVE_OVERRIDES = {
+    "kitti": {"max_points": 4096, "vertical_cells": 16, "horizontal_cells": 64},
+    "resnet_outputs": 64, "layers": [1, 1, 1, 1],
+    "factor_fewer_resnet_channels": 8, "compute_dtype": "float32",
+}
+
+
+def reference_keep(points):
+    """The reference's ``filter_scan`` rule (``delora_tpu/serving/stream.py``),
+    as its mask: finite x, y, z and ``np.linalg.norm`` >= 0.3."""
+    xyz = points[:, :3]
+    return np.isfinite(xyz).all(axis=-1) & (np.linalg.norm(xyz, axis=-1) >= 0.3)
+
+
+def limit_rows(dtype, seed=0):
+    """``[K, 3]`` rows at the filter's edges, in ``dtype``: NaN, +-inf and
+    zero rows; 0.3 rounded to ``dtype`` and one ulp either side along each
+    axis (both signs) and along the two- and three-axis diagonals; and rows
+    a few ulps from the limit on which numpy's order of the squared range's
+    sum, ``(x*x + y*y) + z*z``, and the other, ``x*x + (y*y + z*z)``,
+    disagree about keeping the row."""
+    t = dtype(0.3)
+    rows = [[np.nan, 1, 1], [1, np.nan, 1], [1, 1, np.nan], [np.inf, 1, 1],
+            [1, -np.inf, 1], [1, 1, np.inf], [0, 0, 0], [-0.0, 0, 0]]
+    for r in (np.nextafter(t, dtype(0)), t, np.nextafter(t, dtype(1))):
+        for axis in range(3):
+            for sign in (1, -1):
+                row = [0, 0, 0]
+                row[axis] = sign * r
+                rows.append(row)
+    for k in range(-3, 4):
+        for axes in (2, 3):
+            d = dtype(t / np.sqrt(dtype(axes)))
+            for _ in range(abs(k)):
+                d = np.nextafter(d, dtype(np.sign(k)))
+            rows.append([d, d, d if axes == 3 else 0])
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(20000, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    scale = 1 + np.finfo(dtype).eps * rng.integers(-3, 4, (20000, 1))
+    near = (u * 0.3 * scale).astype(dtype)
+    sq = near * near
+    ordered = np.sqrt((sq[:, 0] + sq[:, 1]) + sq[:, 2]) >= t
+    other = np.sqrt(sq[:, 0] + (sq[:, 1] + sq[:, 2])) >= t
+    flips = near[ordered != other]
+    assert (ordered[ordered != other]).any() and (~ordered[ordered != other]).any()
+    return np.concatenate([np.asarray(rows, dtype), flips[:24], near[:64]])
+
+
+def edge_scan(dtype, columns=4, n=3000, seed=0):
+    """A raw scan ``[M, columns]`` in ``dtype`` for the serving sensor of
+    ``SERVE_OVERRIDES``: ``n`` returns in its field of view, with the rows of
+    :func:`limit_rows` (about half of them dropped) interleaved, each between
+    the two rows of a pair of equal range in one pixel (x and y swapped near
+    45 degrees of azimuth, z = 0). Columns past z are random intensities."""
+    rng = np.random.default_rng(seed)
+    az = rng.uniform(-math.pi, math.pi, n)
+    el = rng.uniform(FOV["fov_down"] - 0.05, FOV["fov_up"] + 0.05, n)
+    r = rng.uniform(1.0, 60.0, n)
+    ret = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                    r * np.sin(el)], -1).astype(dtype)
+    limit = limit_rows(dtype, seed)
+    pairs = []
+    for k in range(len(limit)):
+        a = dtype(rng.uniform(3.0, 30.0))
+        b = dtype(a * (1 + 1e-3))
+        sx, sy = rng.choice([-1, 1], 2)
+        pairs.append([[sx * a, sy * b, 0], limit[k], [sx * b, sy * a, 0]])
+    extra = np.asarray(pairs, dtype).reshape(-1, 3)
+    at = np.sort(rng.choice(n + 1, len(extra) // 3, replace=True))
+    parts, last = [], 0
+    for k, cut in enumerate(at):
+        parts += [ret[last:cut], extra[3 * k:3 * k + 3]]
+        last = cut
+    xyz = np.concatenate(parts + [ret[last:]])
+    return np.concatenate([xyz, rng.random((len(xyz), columns - 3)).astype(dtype)], -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [3000, 6000])
+def test_served_scan_mask_and_image_on_cuda(cuda, dtype, n):
+    """On the card, the served scan's mask equals the reference's keep (and
+    its first ``max_points`` kept rows past 4,096), and ``push_scan``'s image,
+    from one exact launch, equals the image of the scan compacted on the host
+    as the engine did before."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.serving.stream import StreamingOdometry, scan_rows
+
+    engine = StreamingOdometry(default_config(SERVE_OVERRIDES), device=cuda)
+    points = edge_scan(dtype, n=n, seed=n)
+    keep = engine.scan_mask(torch.from_numpy(scan_rows(points)).to(cuda)).cpu().numpy()
+    ref = reference_keep(points)
+    ref &= np.cumsum(ref) <= engine.max_points
+    np.testing.assert_array_equal(keep, ref)
+    before = launch_counts()
+    assert engine.push_scan(points) is None
+    torch.cuda.synchronize()
+    assert launch_counts() == one_more(before)
+    compact = torch.from_numpy(np.ascontiguousarray(points[ref, :3], np.float32)).to(cuda)
+    old = tproj.project_image(compact, torch.ones(len(compact), dtype=torch.bool,
+                                                  device=cuda), engine.pspec)
+    assert torch.equal(engine._prev_img[0], old)
+    assert engine.filter_counts == {"scans": 2, "over_max_points": 2 * int(n > 4096)}

@@ -2,7 +2,9 @@
 
 Both engines get the same Flax params (the port through ``params_from_jax``)
 and the same 4 numpy-seeded scans; relative and accumulated poses agree to
-1e-5 in float32.
+1e-5 in float32. The served scan's mask keeps exactly the rows of the JAX
+package's ``filter_scan``, and the image it projects is the one of the scan
+compacted on the host, bit for bit.
 """
 
 import io
@@ -22,15 +24,12 @@ from delora_tpu.models.odometry import OdometryModel as JaxOdometryModel
 from delora_tpu.serving import stream as jstream
 from delora_tpu.training.state import TrainState
 from delora_tpu_torch.config import default_config
+from delora_tpu_torch.ops.projection import _pixel_coords, project_image
 from delora_tpu_torch.serving import stream as tstream
 from delora_tpu_torch.training.checkpoint import CheckpointManager
 from delora_tpu_torch.utils.params import params_from_jax
-
-OVERRIDES = {
-    "kitti": {"max_points": 4096, "vertical_cells": 16, "horizontal_cells": 64},
-    "resnet_outputs": 64, "layers": [1, 1, 1, 1],
-    "factor_fewer_resnet_channels": 8, "compute_dtype": "float32",
-}
+from tests.test_torch_cuda import SERVE_OVERRIDES as OVERRIDES
+from tests.test_torch_cuda import edge_scan, reference_keep
 
 
 def make_scans(n_scans=4, n=5000, seed=0):
@@ -122,8 +121,8 @@ def test_serve_stdin_jsonl_keys_match_jax(engines, tmp_path, monkeypatch, capsys
 
 
 def test_filter_scan_and_integrator_match_jax():
-    scan = make_scans(1, seed=3)[0]
-    np.testing.assert_array_equal(tstream.filter_scan(scan), jstream.filter_scan(scan))
+    for scan in (make_scans(1, seed=3)[0], edge_scan(np.float32), edge_scan(np.float64)):
+        np.testing.assert_array_equal(tstream.filter_scan(scan), jstream.filter_scan(scan))
     rng = np.random.default_rng(4)
     ti, ji = tstream.OdometryIntegrator(), jstream.OdometryIntegrator()
     for _ in range(5):
@@ -133,6 +132,55 @@ def test_filter_scan_and_integrator_match_jax():
             T[:3, 2] *= -1
         T[:3, 3] = rng.normal(size=3)
         np.testing.assert_allclose(ti.integrate(T), ji.integrate(T), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("columns", [3, 4, 5])
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "over_max_points"])
+def test_scan_mask_matches_jax_filter(dtype, columns, layout):
+    """The mask ``push_scan`` builds keeps exactly the rows that the JAX
+    package's ``filter_scan`` keeps, then its first ``max_points``: NaN,
+    +-inf and zero rows, rows within an ulp of 0.3 m along the axes and the
+    diagonals, and rows where the order of the squared range's sum decides."""
+    engine = tstream.StreamingOdometry(default_config(OVERRIDES), device="cpu")
+    n = 6000 if layout == "over_max_points" else 3000
+    points = edge_scan(dtype, columns, n, seed=columns)
+    if layout == "strided":
+        points = np.concatenate([points, points], -1)[:, :columns]
+        assert not points.flags.c_contiguous
+    keep = engine.scan_mask(torch.from_numpy(tstream.scan_rows(points))).numpy()
+    over = len(points) > engine.max_points
+    assert over == (layout == "over_max_points")
+    assert engine.filter_counts == {"scans": 1, "over_max_points": int(over)}
+    ref = reference_keep(points)
+    if over:
+        assert ref.sum() > engine.max_points
+        ref &= np.cumsum(ref) <= engine.max_points
+    np.testing.assert_array_equal(keep, ref)
+    np.testing.assert_array_equal(points[:, :3][keep],
+                                  jstream.filter_scan(points)[:engine.max_points])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [3000, 6000])
+def test_pushed_image_equals_the_compacted_scans(dtype, n):
+    """``push_scan``'s image is bit-equal to the image of the scan compacted
+    on the host (the JAX package's ``filter_scan``, then ``max_points``)
+    under an all-true mask, with dropped rows between pixels' range ties."""
+    engine = tstream.StreamingOdometry(default_config(OVERRIDES), device="cpu")
+    points = edge_scan(dtype, 4, n, seed=n)
+    assert engine.push_scan(points) is None
+    compact = torch.from_numpy(np.ascontiguousarray(
+        jstream.filter_scan(points)[:engine.max_points], np.float32))
+    valid = torch.ones(len(compact), dtype=torch.bool)
+    assert torch.equal(engine._prev_img[0], project_image(compact, valid, engine.pspec))
+    # Some pixel's nearest range is held by two rows that differ: the tie
+    # rule, not the ranges, picks the winner there.
+    r, _, _, in_fov, pix = _pixel_coords(compact, valid, engine.pspec)
+    hw = engine.pspec.height * engine.pspec.width
+    best = torch.full((hw + 1,), float("inf")).scatter_reduce(0, pix.long(), r, "amin")
+    at_best = in_fov & (r == best[pix.long()])
+    assert (torch.bincount(pix[at_best].long()) >= 2).any()
 
 
 def write_checkpoint(directory, config, model) -> str:
