@@ -6,7 +6,8 @@ as it comes, masked on the device (NaN, zero and range < 0.3 m rows left out
 of the placement, as the reference's ``filter_scan`` drops them), projected
 once through the placement kernel, and paired with the previous scan's image,
 which stays on the device; the model's relative transform is chained by the
-integrator. ``serve_stdin`` speaks the same JSONL protocol as the reference.
+integrator. On a CUDA device the network's forward is one replayed CUDA graph a
+pair. ``serve_stdin`` speaks the same JSONL protocol as the reference.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from delora_tpu_torch import resolve_device
 from delora_tpu_torch.data.kitti import read_velodyne_bin
@@ -102,7 +104,17 @@ def load_serving_checkpoint(path: str) -> Tuple[Dict, Dict[str, torch.Tensor]]:
 class StreamingOdometry:
     """Parameters come from a checkpoint (:func:`load_serving_checkpoint`),
     from ``params`` (a state_dict, for example ``params_from_jax(...)``), or
-    else from the seeded default initialisation."""
+    else from the seeded default initialisation.
+
+    On a CUDA device the engine captures the network's forward once, when it
+    is built (:meth:`_capture`), and ``push_scan`` replays it for every pair;
+    on the CPU it runs the forward eagerly and captures nothing. The graphs
+    read the model's parameters where they lie, so change the weights in
+    place only: ``self.model.load_state_dict`` copies into them and the next
+    pair is served with the new weights, while a parameter replaced by
+    another tensor (``to``, ``load_state_dict(assign=True)``) or a forward
+    patched in Python goes unseen. ``graph_counts`` counts the captures and
+    the replays."""
 
     def __init__(self, config, checkpoint: Optional[str] = None,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -122,6 +134,47 @@ class StreamingOdometry:
         self.integrator = OdometryIntegrator()
         self.step_times = {}
         self.filter_counts = {"scans": 0, "over_max_points": 0}
+        self.graph_counts = {"captures": 0, "replays": 0}
+        self._slots = self._graphs = None      # set by _capture on CUDA
+        if self.device.type == "cuda":
+            self._capture()
+
+    @torch.no_grad()
+    def _capture(self) -> None:
+        """Capture :func:`forward_pose` at the configuration's image shape
+        ``[1, H, W, 4]`` as two CUDA graphs in one memory pool, over two
+        static image slots: graph k reads slot k as the previous image and
+        slot 1 - k as the current one, and writes a static ``[4, 4]``.
+        Each scan's image is copied into the slot the previous image does not
+        hold, so no image is copied twice.
+
+        Three eager calls on the capture stream first settle cuDNN and the
+        allocator, as PyTorch's recipe asks. Autocast's weight cache is off
+        during the capture, so the bfloat16 casts of the weights are made
+        inside the graphs, from the parameters as they are at each replay."""
+        shape = (1, self.pspec.height, self.pspec.width, self.model.cfg.in_channels_per_image)
+        slots = [torch.zeros(shape, device=self.device) for _ in range(2)]
+        graphs, pool = [], None
+        cache = torch.is_autocast_cache_enabled()
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                for _ in range(3):
+                    forward_pose(self.model, slots[0], slots[1])
+            torch.cuda.current_stream().wait_stream(stream)
+            torch.set_autocast_cache_enabled(False)
+            try:
+                for k in range(2):
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=pool, stream=stream):
+                        T = forward_pose(self.model, slots[k], slots[1 - k])
+                    pool = graph.pool()
+                    graphs.append((graph, T[0]))
+                    self.graph_counts["captures"] += 1
+            finally:
+                torch.set_autocast_cache_enabled(cache)
+        self._slots, self._graphs = slots, graphs
 
     def scan_mask(self, rows: torch.Tensor) -> torch.Tensor:
         """:func:`keep_mask` of one scan's rows, less the kept rows past the
@@ -141,7 +194,9 @@ class StreamingOdometry:
         ``step_times`` then holds the host-clock seconds of each step of this
         call. The card runs the projection and the forward asynchronously, so
         "project" and "forward" are the host's time to issue them, and
-        "readback" waits for the card to finish both.
+        "readback" waits for the card to finish both. On a CUDA device
+        "forward" is the copy of the image into its slot and the graph's
+        replay (:meth:`_capture`).
 
         The scan goes up as it comes, in its own dtype; the rows that the
         reference's ``filter_scan`` drops, or that pass ``max_points``, are
@@ -158,14 +213,23 @@ class StreamingOdometry:
         img = project_image(rows[:, :3], keep, self.pspec)[None]
         t3 = time.perf_counter()
         self.step_times = {"upload": t1 - t0, "filter": t2 - t1, "project": t3 - t2}
-        if self._prev_img is None:
-            self._prev_img = img
+        prev = self._prev_img
+        if self._graphs is not None:
+            k = 1 if prev is self._slots[0] else 0
+            img = self._slots[k].copy_(img)
+        self._prev_img = img
+        if prev is None:
             return None
-        T = forward_pose(self.model, self._prev_img, img)[0]
+        if self._graphs is None:
+            T = forward_pose(self.model, prev, img)[0]
+        else:
+            graph, T = self._graphs[1 - k]
+            with record_function("serving.forward_graph"):
+                graph.replay()
+            self.graph_counts["replays"] += 1
         t4 = time.perf_counter()
         T = T.cpu().numpy()
         t5 = time.perf_counter()
-        self._prev_img = img
         pose = self.integrator.integrate(T)
         t6 = time.perf_counter()
         self.step_times.update(forward=t4 - t3, readback=t5 - t4, integrate=t6 - t5)

@@ -213,7 +213,8 @@ def test_diagnostics_run_or_say_they_are_skipped(smoke_bench, capsys):
     assert len(skipped) == 5 and all(line.startswith("diagnostic skipped") for line in skipped)
 
 
-def launch_counts():
+def launch_counters():
+    """The kernel wrappers' launch counters, as (wrapper, attribute) pairs."""
     from delora_tpu_torch.ops.cuda.nn_search import nn_search
     from delora_tpu_torch.ops.cuda.placement import placement
     from delora_tpu_torch.ops.cuda.window_match import (
@@ -222,8 +223,13 @@ def launch_counts():
         window_match_soft,
     )
 
-    return (placement.launches_exact, placement.launches_packed, window_match.launches,
-            window_match_indices.launches, window_match_soft.launches, nn_search.launches)
+    return ((placement, "launches_exact"), (placement, "launches_packed"),
+            (window_match, "launches"), (window_match_indices, "launches"),
+            (window_match_soft, "launches"), (nn_search, "launches"))
+
+
+def launch_counts():
+    return tuple(getattr(fn, name) for fn, name in launch_counters())
 
 
 def test_cli_bench_on_the_cpu_prints_one_json_line(monkeypatch, capsys):
@@ -234,6 +240,10 @@ def test_cli_bench_on_the_cpu_prints_one_json_line(monkeypatch, capsys):
     monkeypatch.setenv("BENCH_DEADLINE_S", "1")
     monkeypatch.delenv("BENCH_HEADLINE_ONLY", raising=False)
     monkeypatch.setattr(bench, "STEPS_PER_DISPATCH", 1)
+    # Other test files in this worker may have counted launches through
+    # recorders; the bench's own count starts from 0.
+    for fn, name in launch_counters():
+        monkeypatch.setattr(fn, name, 0)
     before = launch_counts()
     result = main(["bench", "2", "2", "--device", "cpu"])
     out, err = capsys.readouterr()

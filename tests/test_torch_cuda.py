@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
+Every test here but the last needs an NVIDIA GPU (marker ``cuda``) and skips
+without one.
 The file imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -10,7 +11,9 @@ it). Each kernel must be bit-equal to its plain version on the same inputs
 and count exactly one launch; the soft matcher's squared distances and miss
 mask must be bit-equal, and its blends within rtol 1e-5 / atol 1e-5 (metres):
 the kernel's expf and torch.exp on the card may differ in the last bit, which
-moves a blend by about 1e-7 of the spread of its candidates.
+moves a blend by about 1e-7 of the spread of its candidates. The serving
+engine's CUDA graph must serve the eager forward's transforms bit for bit;
+the last test holds the engine's CPU path, which captures nothing.
 """
 
 import math
@@ -833,3 +836,112 @@ def test_served_scan_mask_and_image_on_cuda(cuda, dtype, n):
                                                   device=cuda), engine.pspec)
     assert torch.equal(engine._prev_img[0], old)
     assert engine.filter_counts == {"scans": 2, "over_max_points": 2 * int(n > 4096)}
+
+
+# The served forward as a replayed CUDA graph (``StreamingOdometry._capture``):
+# the replay runs the kernels the eager forward runs, so each transform is the
+# eager forward's on the same two images, bit for bit.
+
+STEP_KEYS = {"upload", "filter", "project", "forward", "readback", "integrate"}
+
+
+def eager_pose(model, prev, cur):
+    from delora_tpu_torch.training.step import forward_pose
+
+    with torch.no_grad():
+        return forward_pose(model, prev, cur)[0].cpu().numpy()
+
+
+def serve_against_eager(engine, scans):
+    """Push ``scans`` through ``engine`` -> (the transforms it served, the
+    images it held, from the one it held before), each transform checked
+    bit-equal to the eager forward of its model on its two images (one exact
+    placement a scan and one replay a pair)."""
+    before, replays = launch_counts(), engine.graph_counts["replays"]
+    served, images = [], [engine._prev_img.clone()] if engine._prev_img is not None else []
+    for points in scans:
+        out = engine.push_scan(points)
+        images.append(engine._prev_img.clone())
+        if out is None:
+            continue
+        served.append(out[0])
+        assert set(engine.step_times) == STEP_KEYS
+        np.testing.assert_array_equal(out[0], eager_pose(engine.model, *images[-2:]))
+    torch.cuda.synchronize()
+    assert launch_counts() == (before[0] + len(scans), before[1])
+    assert engine.graph_counts == {"captures": 2, "replays": replays + len(served)}
+    return served, images
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides,n", [(SERVE_OVERRIDES, 3000), ({}, 60000)],
+                         ids=["16x64_fp32", "64x720_bf16"])
+def test_served_forward_graph_equals_the_eager_forward_on_cuda(cuda, overrides, n):
+    """Seven scans through a CUDA engine at the tests' size (float32) and at
+    KITTI's 64x720 under bf16 autocast: every transform is the eager
+    forward's, bit for bit. Seeded weights loaded after the capture are
+    served from the next pair on, and the transforms equal the eager
+    forward's again; the replay is a named span in a trace."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
+    from delora_tpu_torch.serving.stream import StreamingOdometry
+
+    config = default_config(overrides)
+    engine = StreamingOdometry(config, device=cuda)
+    assert engine.graph_counts == {"captures": 2, "replays": 0}
+    scans = [edge_scan(np.float32, n=n, seed=s) for s in range(10)]
+    assert len(serve_against_eager(engine, scans[:7])[0]) == 6
+
+    old = copy.deepcopy(engine.model)
+    engine.model.load_state_dict(OdometryModel(
+        ModelConfig.from_config(config), torch.Generator().manual_seed(1)).state_dict())
+    served, images = serve_against_eager(engine, scans[7:9])
+    for k, T in enumerate(served):
+        assert not np.array_equal(T, eager_pose(old, images[k], images[k + 1]))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.push_scan(scans[9])
+        torch.cuda.synchronize()
+    assert "serving.forward_graph" in {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.cuda
+def test_two_graphed_engines_in_one_process_on_cuda(cuda):
+    """A KITTI (64x720) and a DARPA (64x512) engine in one process, their
+    scans pushed in turns: each serves the eager forward's transforms and
+    what the KITTI engine serves alone."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.serving.stream import StreamingOdometry
+
+    config = default_config()
+    scans = [edge_scan(np.float32, n=60000, seed=s) for s in range(6)]
+    alone = serve_against_eager(StreamingOdometry(config, device=cuda), scans)[0]
+    kitti = StreamingOdometry(config, device=cuda)
+    darpa = StreamingOdometry(config, device=cuda, dataset="darpa")
+    assert darpa._slots[0].shape == (1, 64, 512, 4)
+    together = []
+    for k, points in enumerate(scans):
+        together += serve_against_eager(kitti, [points])[0]
+        serve_against_eager(darpa, [scans[-1 - k]])
+    assert len(together) == len(alone) == 5
+    assert all(np.array_equal(a, b) for a, b in zip(alone, together))
+    assert kitti.graph_counts == darpa.graph_counts == {"captures": 2, "replays": 5}
+
+
+def test_cpu_engine_serves_eagerly_and_captures_nothing():
+    """On the CPU the engine captures no graph and times the same steps of
+    ``push_scan`` as before the graph."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.serving.stream import StreamingOdometry
+
+    engine = StreamingOdometry(default_config(SERVE_OVERRIDES), device="cpu")
+    assert engine.push_scan(edge_scan(np.float32, seed=0)) is None
+    assert set(engine.step_times) == {"upload", "filter", "project"}
+    for seed in (1, 2):
+        T = engine.push_scan(edge_scan(np.float32, seed=seed))[0]
+        assert set(engine.step_times) == STEP_KEYS and np.isfinite(T).all()
+    assert engine.graph_counts == {"captures": 0, "replays": 0}
