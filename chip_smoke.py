@@ -7,8 +7,8 @@ exits non-zero without printing a result:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the port's CUDA sources (placement, window matcher,
-   1-NN search), one compiler each, started together; each one's time and
-   ``-Xptxas -v``;
+   1-NN search, the backbone's wrap-pad), one compiler each, started
+   together; each one's time and ``-Xptxas -v``;
 3. drive: 24 ray-cast scans of a street (64 beams x 2000 azimuth steps) with
    the analytic normal of the surface each ray hit, turned to the sensor;
 4. kernels: each kernel against its plain PyTorch version on the card,
@@ -41,6 +41,11 @@ exits non-zero without printing a result:
    - exact 1-NN, B = 8, S = 46,080 warped survivors against T = 131,072
      padded target points with the drive's survivor mask, and a near-tie
      cloud with duplicated targets, each also at B = 1 (its first row);
+   - the backbone's wrap-pad, channels-last bf16 at the default model's
+     shapes in a B = 32 train step at 64x720: the max-pool's (32, 64, 64,
+     360) with -inf rows, a stage-1 (32, 64, 64, 180) and a stage-4 (32,
+     512, 32, 23) convolution's; the padded tensor and the input gradient,
+     one launch each way, each way timed;
    with the time of a wrapper call (CUDA events), the kernels' device time
    (torch.profiler; the placement's and the 1-NN's by pass), the plain
    version's time, the bound and a one-call PyTorch yardstick where there is
@@ -175,8 +180,12 @@ exits non-zero without printing a result:
 
 Each path of phases 5-13 is driven with every kernel's launch count set to 0
 just before it and read just after; the placement wrapper counts its exact
-and its packed rule apart. A path fails unless each of its kernels launched
-as often as the path should launch it and every other kernel not at all.
+and its packed rule apart, the wrap-pad its forward and backward. A path
+fails unless each of its kernels launched as often as the path should launch
+it and every other kernel not at all. The wrap-pad launches in every eager
+forward and backward of the model and in none of a replayed CUDA graph; it is
+held to 18 forward and 17 backward launches a step on phase 6's main path
+and recorded on the others.
 
 Phase 12c's processes read their own counts and hand them back.
 
@@ -248,6 +257,14 @@ FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 LANES_PER_SM = 128                  # Hopper: 4 schedulers x 32 lanes issue a cycle
 H, W, N = 64, 720, 131072
 TRAIN_B = 8
+# The backbone's wrap-pad a train step: 17 ConvCirc and the max-pool forward;
+# backward one fewer, the stem's input (the images) takes no gradient.
+PAD_LAUNCHES_A_STEP = {"circular_pad": 18, "circular_pad_grad": 17}
+# The wrap-pad at the default model's shapes in the benchmark's train step
+# (B = 32, 64x720, bf16): [B, C, H, W], pad_w, pad_h and the rows' value.
+PAD_CASES = (("max-pool", (32, 64, 64, 360), 1, 1, -math.inf),
+             ("stage-1 conv", (32, 64, 64, 180), 1, 0, 0.0),
+             ("stage-4 conv", (32, 512, 32, 23), 1, 0, 0.0))
 SEED = 0
 PLACEMENT_KERNELS = ("select_winners", "write_and_reset")
 MATCHER_KERNELS = ("window_match_hard",)
@@ -1455,6 +1472,85 @@ def nn_library_ms(src, tgt, card) -> float:
     return lib_ms
 
 
+def check_circular_pad(card):
+    """Phase 4g: the backbone's wrap-pad at :data:`PAD_CASES`, channels-last
+    bf16: the padded tensor and the input gradient bit-equal to the plain
+    version's (``torch.cat`` + ``F.pad`` and their autograd), one launch each
+    way; a call's time (CUDA events) and the kernels' device time
+    (torch.profiler) each way, against the plain version's and the bytes'
+    bound. -> the max-pool case's timing and the largest difference."""
+    import torch.nn.functional as F
+
+    from delora_tpu_torch.ops.cuda.circular_pad import circular_pad, circular_pad_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    err, timing = 0.0, None
+    for name, shape, pad_w, pad_h, value in PAD_CASES:
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        B, C, Hh, Ww = shape
+        grad = torch.randn((B, C, Hh + 2 * pad_h, Ww + 2 * pad_w), generator=g,
+                           device=dev).to(torch.bfloat16).contiguous(
+                               memory_format=torch.channels_last)
+        before = (circular_pad.launches_forward, circular_pad.launches_backward)
+        out = circular_pad(x, pad_w, pad_h, value)
+        (gx,) = torch.autograd.grad(out, x, grad, retain_graph=True)
+        launched = (circular_pad.launches_forward - before[0],
+                    circular_pad.launches_backward - before[1])
+        ref = circular_pad_plain(x, pad_w, pad_h, value)
+        (gref,) = torch.autograd.grad(ref, x, grad, retain_graph=True)
+        torch.cuda.synchronize()
+        if launched != (1, 1) or not (out.is_contiguous(memory_format=torch.channels_last)
+                                      and gx.is_contiguous(memory_format=torch.channels_last)):
+            raise RuntimeError(f"circular_pad {name}: launches {launched}, channels-last out "
+                               f"{out.is_contiguous(memory_format=torch.channels_last)}, "
+                               f"gradient {gx.is_contiguous(memory_format=torch.channels_last)}")
+        err = max(err, require_equal(f"circular_pad {name}", (out, gx), (ref, gref)))
+
+        def forward():
+            with torch.no_grad():
+                circular_pad(x, pad_w, pad_h, value)
+
+        def plain():
+            with torch.no_grad():
+                circular_pad_plain(x, pad_w, pad_h, value)
+
+        def backward():
+            torch.autograd.grad(out, x, grad, retain_graph=True)
+
+        def plain_backward():
+            torch.autograd.grad(ref, x, grad, retain_graph=True)
+
+        ms, plain_ms = cuda_ms(forward), cuda_ms(plain, reps=10, inner=5)
+        grad_ms, grad_plain_ms = cuda_ms(backward), cuda_ms(plain_backward, reps=10, inner=5)
+        dev_ms = profiled_device_ms(forward, ("wrap_pad_nhwc",))
+        grad_dev_ms = profiled_device_ms(backward, ("wrap_pad_nhwc_grad",))
+        library_ms = None
+        if pad_h == 0:
+            library_ms = cuda_ms(lambda: F.pad(x.detach(), (pad_w, pad_w, 0, 0),
+                                               mode="circular"), reps=10, inner=5)
+        # Each way reads one of the two tensors once and writes the other once.
+        moved = (x.numel() + grad.numel()) * x.element_size()
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+
+        def us(v):
+            return "not measured" if v is None else f"{v * 1e3:.2f} us"
+
+        say(f"circular_pad {name} {shape} bf16 channels-last, pads ({pad_w}, {pad_h}), rows "
+            f"{value}: padded tensor and input gradient bit-equal to plain, one launch each "
+            f"way | forward: call {us(ms)}, device {us(dev_ms)}, plain {us(plain_ms)}; "
+            f"backward: call {us(grad_ms)}, device {us(grad_dev_ms)}, plain (autograd) "
+            f"{us(grad_plain_ms)}; bound {us(bound_ms)} each way ({moved} B at 3.35 TB/s)"
+            + ("" if library_ms is None else f"; F.pad circular (W only) {us(library_ms)}")
+            + f" on {card}")
+        if timing is None:
+            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          device_ms=dev_ms, grad_ms=grad_ms, grad_device_ms=grad_dev_ms,
+                          grad_plain_ms=grad_plain_ms, shape=list(shape))
+    return timing, err
+
+
 def run_serving(config, scans, spec, card):
     """Phase 5, as in the serving slice."""
     from torch.profiler import ProfilerActivity, profile
@@ -1556,7 +1652,9 @@ def first_batch(trainer):
 
 def counters():
     """Each kernel row's launch count, by row name -> (wrapper, attribute).
-    The placement wrapper counts its two winner rules apart."""
+    The placement wrapper counts its two winner rules apart, the wrap-pad
+    its forward and backward."""
+    from delora_tpu_torch.ops.cuda.circular_pad import circular_pad
     from delora_tpu_torch.ops.cuda.nn_search import nn_search
     from delora_tpu_torch.ops.cuda.placement import placement
     from delora_tpu_torch.ops.cuda.window_match import (
@@ -1570,11 +1668,25 @@ def counters():
             "window_match": (window_match, "launches"),
             "window_match_soft": (window_match_soft, "launches"),
             "window_match_index": (window_match_indices, "launches"),
-            "nn_search": (nn_search, "launches")}
+            "nn_search": (nn_search, "launches"),
+            "circular_pad": (circular_pad, "launches_forward"),
+            "circular_pad_grad": (circular_pad, "launches_backward")}
 
 
 # Path -> each kernel's launches in that path's run (see path_launches).
 PATH_LAUNCHES = {}
+# The backbone's wrap-pad launches in every eager forward and backward of the
+# model on the card (18 and 17 a train step at the default widths), and not
+# in a replayed CUDA graph: a path's count is held where the path states it
+# and recorded everywhere.
+MODEL_COUNTERS = ("circular_pad", "circular_pad_grad")
+
+
+def wanted(counts, expected) -> dict:
+    """Each counter's launches as ``expected`` states them: 0 if unstated,
+    except the model's (:data:`MODEL_COUNTERS`), which are then as read."""
+    return {name: expected.get(name, counts[name] if name in MODEL_COUNTERS else 0)
+            for name in counts}
 
 
 def reset_launches() -> None:
@@ -1586,10 +1698,11 @@ def reset_launches() -> None:
 def path_launches(path: str, expected) -> dict:
     """The launches since :func:`reset_launches`, read just after ``path``
     was driven and kept as its own: fails unless each kernel named in
-    ``expected`` launched that often and every other kernel not at all.
+    ``expected`` launched that often and every other kernel not at all (the
+    model's wrap-pad as read, unless named: see :data:`MODEL_COUNTERS`).
     -> the kernels that launched, with their counts."""
     counts = {name: getattr(wrapper, attr) for name, (wrapper, attr) in counters().items()}
-    want = {name: expected.get(name, 0) for name in counts}
+    want = wanted(counts, expected)
     if counts != want:
         raise RuntimeError(f"{path}: kernel launches {counts}, expected {want}")
     PATH_LAUNCHES[path] = counts
@@ -2701,7 +2814,7 @@ def run_rosbag_dataset(root, card) -> None:
 
 def record_launches(path: str, counts, expected) -> dict:
     """:func:`path_launches` for counts read in another process."""
-    want = {name: expected.get(name, 0) for name in counts}
+    want = wanted(counts, expected)
     if counts != want:
         raise RuntimeError(f"{path}: kernel launches {counts}, expected {want}")
     PATH_LAUNCHES[path] = dict(counts)
@@ -3067,8 +3180,9 @@ def main() -> None:
         f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
-    builds = cuda_build.build_all(["placement", "window_match", "nn_search", "delora_io"])
-    say(f"build: {time.perf_counter() - t0:.2f} s for all four, one compiler each started "
+    builds = cuda_build.build_all(["placement", "window_match", "nn_search", "circular_pad",
+                                   "delora_io"])
+    say(f"build: {time.perf_counter() - t0:.2f} s for all five, one compiler each started "
         f"together (nvcc {' '.join(cuda_build.NVCC_FLAGS)}; the host IO library "
         f"{cuda_build.host_compiler()} {' '.join(cuda_build.HOST_FLAGS)})")
     for lib, (log, seconds, built) in builds.items():
@@ -3102,9 +3216,11 @@ def main() -> None:
     soft, err_soft = check_soft_matcher(trainer, spec, scans[0], rng, card)
     index, err_index = check_index_matcher(trainer, spec, card)
     nn, err_nn = check_nn_search(trainer, scans, normals, spec, rng, card)
+    pad, err_pad = check_circular_pad(card)
 
     run_serving(config, scans[:12], spec, card)
-    run_training(trainer, card, "main", 12, {"placement_packed": 1, "window_match": 1})
+    run_training(trainer, card, "main", 12, {"placement_packed": 1, "window_match": 1,
+                                             **PAD_LAUNCHES_A_STEP})
     step_split(trainer, card, "training")
     check_fp32_step(trainer, "training")
     check_loss_falls(trainer)
@@ -3156,9 +3272,11 @@ def main() -> None:
     # Phase 13: the bench, in a fresh process and its headline here.
     run_bench(card)
 
-    def row(name_, source, replaces, err, t):
-        by_path = {path: counts[name_] for path, counts in PATH_LAUNCHES.items()
-                   if counts[name_]}
+    def row(name_, source, replaces, err, t, counted=None):
+        names = counted or (name_,)
+        by_path = {path: sum(counts.get(n, 0) for n in names)
+                   for path, counts in PATH_LAUNCHES.items()}
+        by_path = {path: n for path, n in by_path.items() if n}
         return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -3166,7 +3284,8 @@ def main() -> None:
                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
                 "launches_by_path": by_path,
                 **{k: t[k] for k in ("floor_ms", "floor_instructions_per_candidate",
-                                     "preprocess_shape", "library_ms_b1") if k in t}}
+                                     "preprocess_shape", "library_ms_b1", "grad_ms",
+                                     "grad_device_ms", "grad_plain_ms", "shape") if k in t}}
 
     matcher_src = "delora_tpu_torch/csrc/window_match.cu"
     print(card, flush=True)
@@ -3184,6 +3303,9 @@ def main() -> None:
             err_index, index),
         row("nn_search", "delora_tpu_torch/csrc/nn_search.cu",
             "delora_tpu/ops/pallas/nn_search.py:172", err_nn, nn),
+        row("circular_pad", "delora_tpu_torch/csrc/circular_pad.cu",
+            "delora_tpu/models/resnet.py:38 (no kernel: a concatenate and pad XLA fuses)",
+            err_pad, pad, counted=MODEL_COUNTERS),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,18 @@ model runs on one process's share of it).
 parameters stay float32 and the outputs come out float32. ``use_dropout``
 turns on the backbone's dropout in training mode and ``remat`` recomputes
 the backbone's blocks in the backward pass (``models/resnet.py``).
+
+Layout, chosen by the images' device: on CUDA the backbone runs
+channels-last from the images to the global mean, forward and backward.
+The NHWC images' ``[B, C, H, W]`` views are channels-last already, cuDNN's
+convolutions on the card are NHWC kernels, and a model moved onto a CUDA
+device holds its convolution weights channels-last (:meth:`OdometryModel.
+_apply`), so no layout is converted around a convolution. On the CPU the
+images are made contiguous NCHW: the CPU convolution's backward crashes on
+channels-last strides. ``layout_counts`` counts the forwards taken in each
+layout as Python runs them: eager forwards and the capture of a CUDA graph,
+not the graph's replays (``StreamingOdometry.graph_counts`` counts those, a
+served scan each). State dicts hold the same values and names in either layout.
 """
 
 from __future__ import annotations
@@ -65,6 +77,12 @@ class ModelConfig(NamedTuple):
         )
 
 
+def backbone_layout(device: torch.device) -> torch.memory_format:
+    """The backbone's layout on ``device``: channels-last on CUDA, contiguous
+    NCHW elsewhere."""
+    return torch.channels_last if device.type == "cuda" else torch.contiguous_format
+
+
 def _mlp(in_features: int, sizes, activation: str) -> nn.Sequential:
     """Activation-first MLP: (act, Linear) per layer, Linears at odd indices."""
     layers = []
@@ -102,6 +120,21 @@ class OdometryModel(nn.Module):
             self.fully_connected_rotation = _mlp(cfg.resnet_outputs, (100, 4), cfg.activation)
             self.fully_connected_translation = _mlp(cfg.resnet_outputs, (100, 3), cfg.activation)
         self.reset_parameters(generator)
+        self.layout_counts = {"nhwc": 0, "nchw": 0}
+
+    def _apply(self, fn, recurse=True):
+        """``Module._apply`` (``to``, ``cuda``, ``cpu``, ...), after which
+        every convolution weight is laid out as :func:`backbone_layout` says
+        for its device: channels-last on CUDA, so cuDNN reads it as its NHWC
+        kernels do and its gradient (and Adam's state, made like it) comes
+        out so; contiguous on the CPU. Values are unchanged."""
+        super()._apply(fn, recurse)
+        for module in self.modules():
+            if isinstance(module, nn.Conv2d):
+                weight = module.weight
+                weight.data = weight.data.contiguous(
+                    memory_format=backbone_layout(weight.device))
+        return self
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         if generator is None:
@@ -129,10 +162,12 @@ class OdometryModel(nn.Module):
         batch, and the global quaternion normalization divides by the norm
         over the whole global batch (its squares summed over the group)."""
         cfg = self.cfg
-        # Contiguous NCHW: the CPU convolution's backward crashes on the
-        # channels-last strides a bare permute leaves.
-        x1 = image_1.permute(0, 3, 1, 2).contiguous()
-        x2 = image_2.permute(0, 3, 1, 2).contiguous()
+        layout = backbone_layout(image_1.device)
+        self.layout_counts["nhwc" if layout == torch.channels_last else "nchw"] += 1
+        # [B, C, H, W] views of the NHWC images: channels-last as they are (no
+        # copy) on CUDA, copied to contiguous NCHW on the CPU.
+        x1 = image_1.permute(0, 3, 1, 2).contiguous(memory_format=layout)
+        x2 = image_2.permute(0, 3, 1, 2).contiguous(memory_format=layout)
         with torch.autocast(x1.device.type, dtype=cfg.compute_dtype,
                             enabled=cfg.compute_dtype != torch.float32):
             if self.feature_extractor is not None:

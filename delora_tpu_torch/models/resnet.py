@@ -1,8 +1,13 @@
 """Norm-free, circular-padded ResNet backbone for range images.
 
-The port of ``delora_tpu/models/resnet.py``, in NCHW: a torchvision-shaped
-ResNet-18 without normalisation layers, with the azimuth (W) wrapped before
-every conv, anisotropic strides (1,2)/(1,2)/(1,2)/(2,2) and tanh or relu.
+The port of ``delora_tpu/models/resnet.py``: a torchvision-shaped ResNet-18
+without normalisation layers, with the azimuth (W) wrapped before every conv,
+anisotropic strides (1,2)/(1,2)/(1,2)/(2,2) and tanh or relu. Tensors are
+indexed [B, C, H, W]; every layer keeps the layout of its input, contiguous
+NCHW on the CPU and channels-last (NHWC in memory) on the card, where the
+model puts it (``models/odometry.py``): cuDNN's convolutions there are NHWC
+kernels, and the wrap-pad is one kernel launch each way
+(``ops/cuda/circular_pad.py``).
 Module names follow the original DeLORA model (``conv1``,
 ``layer{L}.{B}.conv{1,2}``, ``downsample.0``, ``fc``).
 
@@ -30,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from delora_tpu_torch.ops.cuda.circular_pad import circular_pad
 
 
 def activation_fn(name: str):
@@ -64,29 +71,34 @@ DROPOUT_RATE = 0.2
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
             channels: bool = False, shard=None) -> torch.Tensor:
     """Flax's ``nn.Dropout``: keep each element (or, with ``channels``, each
-    [batch, channel] plane of an NCHW tensor) with probability 1 - rate and
-    divide the survivors by 1 - rate; the rest are 0. With ``shard`` (a
-    ``parallel/dist.py::BatchShard``) ``x`` is this process's share of a
-    global batch: the mask is drawn for the global batch and its share
-    kept, so the processes together draw what one process would."""
+    [batch, channel] plane of a [B, C, H, W] tensor) with probability
+    1 - rate and divide the survivors by 1 - rate; the rest are 0. With
+    ``shard`` (a ``parallel/dist.py::BatchShard``) ``x`` is this process's
+    share of a global batch: the mask is drawn for the global batch and its
+    share kept, so the processes together draw what one process would. The
+    draws follow the [B, C, H, W] index order in either layout; an
+    elementwise mask is laid out as ``x`` is, so the result keeps its layout."""
     keep = 1.0 - rate
     shape = x.shape[:2] + (1,) * (x.dim() - 2) if channels else x.shape
     if shard is not None:
         shape = (shape[0] * shard.count,) + tuple(shape[1:])
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    draws = torch.rand(shape, generator=generator, device=x.device)
+    layout = (torch.channels_last if not channels and x.dim() == 4 and not x.is_contiguous()
+              else torch.contiguous_format)
+    mask = torch.lt(draws, keep, out=torch.empty(shape, dtype=torch.bool, device=x.device,
+                                                 memory_format=layout))
     if shard is not None:
         mask = shard.rows(mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def pad_circular_w(x: torch.Tensor, pad_w: int = 1, pad_h: int = 1,
-                   height_value: float = 0.0) -> torch.Tensor:
-    """Wrap-pad azimuth (W), constant-pad rings (H). x: [B, C, H, W]."""
-    if pad_w:
-        x = torch.cat([x[..., -pad_w:], x, x[..., :pad_w]], dim=-1)
-    if pad_h:
-        x = F.pad(x, (0, 0, pad_h, pad_h), value=height_value)
-    return x
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over (H, W) of [B, C, H, W] -> [B, C]. A channels-last ``x`` is
+    reduced as its NHWC view, whose backward hands back a channels-last
+    gradient; a mean over dims (2, 3) would hand back an NCHW one."""
+    if x.is_contiguous():
+        return x.mean(dim=(2, 3))
+    return x.permute(0, 2, 3, 1).mean(dim=(1, 2))
 
 
 class ConvCirc(nn.Conv2d):
@@ -100,7 +112,7 @@ class ConvCirc(nn.Conv2d):
                          padding=(kernel[0] // 2, 0), bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(pad_circular_w(x, pad_w=self.kernel_size[1] // 2, pad_h=0))
+        return super().forward(circular_pad(x, pad_w=self.kernel_size[1] // 2, pad_h=0))
 
 
 class BasicBlock(nn.Module):
@@ -167,11 +179,11 @@ class CircularResNet(nn.Module):
             x = dropout(x, DROPOUT_RATE, generator, shard=shard)
         x = self.act(self.conv1(x))
         # 3x3 max-pool, stride (1, 2): rows padded with -inf, azimuth wrapped.
-        x = F.max_pool2d(pad_circular_w(x, 1, 1, -math.inf), 3, stride=(1, 2))
+        x = F.max_pool2d(circular_pad(x, 1, 1, -math.inf), 3, stride=(1, 2))
         x = self._stage(self.layer3, self._stage(self.layer2, self._stage(self.layer1, x)))
         if drop:
             x = dropout(x, DROPOUT_RATE, generator, channels=True, shard=shard)
-        out = self.fc(self._stage(self.layer4, x).mean(dim=(2, 3)))
+        out = self.fc(spatial_mean(self._stage(self.layer4, x)))
         return dropout(out, DROPOUT_RATE, generator, shard=shard) if drop else out
 
     def _stage(self, layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:

@@ -127,14 +127,19 @@ class BatchShard(NamedTuple):
 
     def mean_(self, tensors: List[torch.Tensor]) -> None:
         """Each tensor replaced, in place, by its mean over the group: one
-        flat all-reduce."""
-        flat = torch.cat([t.reshape(-1) for t in tensors])
+        flat all-reduce. A channels-last tensor (a convolution's gradient on
+        the card) goes in memory order, through its NHWC view, so it is
+        neither transposed nor copied twice; every process holds its tensors
+        in the same layouts."""
+        views = [t.permute(0, 2, 3, 1) if t.dim() == 4 and not t.is_contiguous() else t
+                 for t in tensors]
+        flat = torch.cat([v.reshape(-1) for v in views])
         dist.all_reduce(flat)
         flat.div_(self.count)
         offset = 0
-        for t in tensors:
-            t.copy_(flat[offset:offset + t.numel()].view_as(t))
-            offset += t.numel()
+        for v in views:
+            v.copy_(flat[offset:offset + v.numel()].view_as(v))
+            offset += v.numel()
 
     def reduce_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The step metrics averaged over the group, :data:`SUMMED_METRICS`

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here but the last needs an NVIDIA GPU (marker ``cuda``) and skips
-without one.
+Every test here but ``test_cpu_engine_serves_eagerly_and_captures_nothing``
+needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -13,7 +13,10 @@ mask must be bit-equal, and its blends within rtol 1e-5 / atol 1e-5 (metres):
 the kernel's expf and torch.exp on the card may differ in the last bit, which
 moves a blend by about 1e-7 of the spread of its candidates. The serving
 engine's CUDA graph must serve the eager forward's transforms bit for bit;
-the last test holds the engine's CPU path, which captures nothing.
+one test holds the engine's CPU path, which captures nothing. The model runs
+channels-last on the card: the wrap-pad kernel is bit-equal to its plain
+version, a train step runs no cuDNN layout transpose, and the model's loss
+and gradients match the same model run NCHW.
 """
 
 import math
@@ -945,3 +948,242 @@ def test_cpu_engine_serves_eagerly_and_captures_nothing():
         T = engine.push_scan(edge_scan(np.float32, seed=seed))[0]
         assert set(engine.step_times) == STEP_KEYS and np.isfinite(T).all()
     assert engine.graph_counts == {"captures": 0, "replays": 0}
+
+
+# The backbone runs channels-last on the card (``models/odometry.py``): the
+# circular pad is one kernel launch each way (``ops/cuda/circular_pad.py``),
+# cuDNN gets NHWC tensors and weights, and no layout is converted.
+
+PAD_CASES = [  # shape [B, C, H, W], dtype, (pad_w, pad_h, value)
+    ((32, 8, 64, 720), torch.float32, (1, 0, 0.0)),         # the stem's input
+    ((2, 64, 64, 360), torch.bfloat16, (1, 1, -math.inf)),  # the max-pool's
+    ((2, 512, 32, 23), torch.bfloat16, (1, 0, 0.0)),        # stage 4
+    # One element a thread: pixels that are no multiple of 16 bytes.
+    ((3, 5, 7, 11), torch.bfloat16, (2, 1, 0.5)),           # 10-byte pixels
+    ((2, 3, 4, 5), torch.float32, (1, 1, -math.inf)),       # 12-byte pixels
+    ((2, 4, 6, 9), torch.bfloat16, (3, 1, 2.0)),            # 8-byte pixels
+    ((2, 2, 3, 8), torch.float32, (1, 1, -1.0)),            # 8-byte pixels
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,pads", PAD_CASES,
+                         ids=["stem", "maxpool", "stage4", "px10_bf16", "px12_fp32", "px8_bf16",
+                              "px8_fp32"])
+def test_circular_pad_kernel_bit_equal_to_plain_on_cuda(cuda, shape, dtype, pads):
+    """The kernel's padded tensor and its input gradient against the plain
+    version (``torch.cat`` + ``F.pad`` and their autograd) on the same
+    channels-last input, bit for bit; one launch each way, channels-last
+    out. An NCHW input is padded to the same values, channels-last."""
+    from delora_tpu_torch.ops.cuda.circular_pad import circular_pad, circular_pad_plain
+
+    pad_w, pad_h, value = pads
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    before = (circular_pad.launches_forward, circular_pad.launches_backward)
+    out = circular_pad(x, pad_w, pad_h, value)
+    ref = circular_pad_plain(x, pad_w, pad_h, value)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    grad = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
+    (gx,) = torch.autograd.grad(out, x, grad.contiguous(memory_format=torch.channels_last))
+    (gref,) = torch.autograd.grad(ref, x, grad)
+    torch.cuda.synchronize()
+    assert (circular_pad.launches_forward, circular_pad.launches_backward) == (
+        before[0] + 1, before[1] + 1)
+    assert gx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(gx, gref)
+    nchw = circular_pad(x.detach().contiguous(), pad_w, pad_h, value)
+    assert nchw.is_contiguous(memory_format=torch.channels_last) and torch.equal(nchw, ref)
+
+
+@pytest.mark.cuda
+def test_circular_pad_kernel_wraps_a_one_column_image_on_cuda(cuda):
+    """W = pad_w = 1: every padded column is the one input column, whose
+    gradient sums three columns (in the kernel's order, so within rounding of
+    autograd's)."""
+    from delora_tpu_torch.ops.cuda.circular_pad import circular_pad, circular_pad_plain
+
+    x = torch.randn(2, 8, 5, 1, device=cuda).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    out = circular_pad(x, 1, 1, -math.inf)
+    ref = circular_pad_plain(x, 1, 1, -math.inf)
+    assert torch.equal(out, ref)
+    grad = torch.randn(out.shape, device=cuda)
+    (gx,) = torch.autograd.grad(out, x, grad)
+    (gref,) = torch.autograd.grad(ref, x, grad)
+    torch.testing.assert_close(gx, gref, rtol=1e-6, atol=1e-6)
+
+
+def raw_step_batch(cuda, seed, n=30000):
+    """A raw-feed batch of two KITTI-sensor pairs (``cloud``'s points, unit
+    normals)."""
+    from delora_tpu_torch.training.step import ScanPairBatch
+
+    pts, valid, _ = cloud(seed, n)
+    rng = np.random.default_rng(seed + 1)
+    normals = rng.normal(size=pts.shape).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    parts = [pts, normals, valid, np.roll(pts, 7, axis=1), normals, valid]
+    return ScanPairBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in parts))
+
+
+def card_model(config, cuda, seed=0):
+    from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
+
+    return OdometryModel(ModelConfig.from_config(config),
+                         torch.Generator().manual_seed(seed)).to(cuda)
+
+
+def nchw_on_card(monkeypatch):
+    """Make the model run NCHW on the card, as before the layouts: the
+    layout decided by the device made contiguous, the pad the plain one."""
+    from delora_tpu_torch.models import odometry, resnet
+    from delora_tpu_torch.ops.cuda.circular_pad import circular_pad_plain
+
+    monkeypatch.setattr(odometry, "backbone_layout", lambda device: torch.contiguous_format)
+    monkeypatch.setattr(resnet, "circular_pad", circular_pad_plain)
+
+
+def device_kernels(prof):
+    from torch.autograd import DeviceType
+
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_train_step_runs_channels_last_with_no_layout_kernels_on_cuda(cuda, monkeypatch):
+    """One bf16 train step at 64x720, B=2: every convolution's input is
+    channels-last (forward pre-hooks), the weights, their gradients and
+    Adam's moments too; no cuDNN layout transpose runs; the pads take one
+    launch each way; the forward counts as NHWC; and the step launches no
+    more device work than the same step run NCHW."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.ops.cuda.circular_pad import circular_pad
+    from delora_tpu_torch.training.state import make_optimizer
+    from delora_tpu_torch.training.step import StepConfig, train_step
+
+    config = default_config()
+    assert config["compute_dtype"] == "bfloat16"
+    cfg = StepConfig.from_config(config, supervised=False)
+    batch = raw_step_batch(cuda, seed=3)
+
+    def profiled_step(model):
+        optimizer = make_optimizer(config, model.parameters(), 2)[0]
+        train_step(model, optimizer, batch, cfg)          # warm-up: cuDNN's first calls
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_step(model, optimizer, batch, cfg)
+            torch.cuda.synchronize()
+        return optimizer, device_kernels(prof)
+
+    model = card_model(config, cuda)
+    convs = [m for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    seen = []
+    for conv in convs:
+        conv.register_forward_pre_hook(
+            lambda m, args: seen.append(args[0].is_contiguous(memory_format=torch.channels_last)))
+    before = (circular_pad.launches_forward, circular_pad.launches_backward)
+    optimizer, kernels = profiled_step(model)
+    # 17 ConvCirc and the max-pool's pad; the stem's input (the images) has
+    # no gradient, so one pad fewer runs backward.
+    pads, grads = 17 + 1, 17
+    assert (circular_pad.launches_forward - before[0],
+            circular_pad.launches_backward - before[1]) == (2 * pads, 2 * grads)
+    assert len(seen) == 2 * len(convs) and all(seen)
+    assert model.layout_counts == {"nhwc": 2, "nchw": 0}
+    for conv in convs:
+        w = conv.weight
+        for t in (w, w.grad, optimizer.state[w]["exp_avg"], optimizer.state[w]["exp_avg_sq"]):
+            assert t.is_contiguous(memory_format=torch.channels_last)
+    transposes = [k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k]
+    assert not transposes, transposes[:4]
+    assert sum("wrap_pad_nhwc" in k for k in kernels) == pads + grads
+
+    nchw_on_card(monkeypatch)
+    _, kernels_nchw = profiled_step(card_model(config, cuda))
+    print(f"device launches a step: channels-last {len(kernels)}, NCHW {len(kernels_nchw)}; "
+          f"NCHW transposes {sum('ToNhwc' in k or 'ToNchw' in k for k in kernels_nchw)}")
+    assert len(kernels) <= len(kernels_nchw)
+
+
+def rel_gap(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def loss_and_grads(model, batch, cfg):
+    from delora_tpu_torch.training.step import _LOSS_FNS
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = _LOSS_FNS[type(batch)](model, batch, cfg, None, None)
+    loss.backward()
+    return [loss.detach()] + [p.grad.detach().clone() for p in model.parameters()]
+
+
+@pytest.mark.cuda
+def test_channels_last_model_equals_nchw_on_cuda(cuda, monkeypatch):
+    """The supervised loss (smooth in the transforms) and every gradient of
+    one model run channels-last and run NCHW on the card, 64x720, B=2: in
+    float32 with TF32 off within 1e-5 relative (norm of the gap over the
+    norm); in bf16 within 2^-6, four units of bf16's rounding (2^-8; the
+    bf16 runs' own gaps from float32 reach 0.069)."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.training.step import StepConfig
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    batch = raw_step_batch(cuda, seed=5)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        config = default_config({"compute_dtype": dtype})
+        cfg = StepConfig.from_config(config, supervised=True)
+        runs[dtype, "nhwc"] = loss_and_grads(card_model(config, cuda, seed=4), batch, cfg)
+        with monkeypatch.context() as m:
+            nchw_on_card(m)
+            model = card_model(config, cuda, seed=4)
+            assert all(p.is_contiguous() for p in model.parameters())
+            runs[dtype, "nchw"] = loss_and_grads(model, batch, cfg)
+            assert model.layout_counts == {"nhwc": 0, "nchw": 1}
+    fp32 = [rel_gap(a, b) for a, b in zip(runs["float32", "nhwc"], runs["float32", "nchw"])]
+    bf16 = [rel_gap(a, b) for a, b in zip(runs["bfloat16", "nhwc"], runs["bfloat16", "nchw"])]
+    own = [rel_gap(a, b) for a, b in zip(runs["bfloat16", "nhwc"], runs["float32", "nchw"])]
+    names = ["loss"] + [k for k, _ in model.named_parameters()]
+    for k, a, b, c in zip(names, fp32, bf16, own):
+        print(f"gap {k}: fp32 {a:.3g}; bf16 {b:.3g}, bf16's own {c:.3g}")
+    assert max(fp32) <= 1e-5
+    assert max(bf16) <= 2.0 ** -6
+
+
+@pytest.mark.cuda
+def test_card_state_dict_loads_bit_equal_into_a_cpu_model(cuda):
+    """A state dict saved from the card's model (channels-last weights)
+    loads bit-equal into a CPU model, which keeps contiguous weights, and a
+    CPU model's into a card model, which keeps channels-last ones; a copy
+    moved to the CPU holds contiguous weights."""
+    import copy
+    import io
+
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
+
+    config = default_config(SERVE_OVERRIDES)
+    card = card_model(config, cuda, seed=6)
+    buf = io.BytesIO()
+    torch.save(card.state_dict(), buf)
+    buf.seek(0)
+    cpu = OdometryModel(ModelConfig.from_config(config), torch.Generator().manual_seed(7))
+    cpu.load_state_dict(torch.load(buf, map_location="cpu", weights_only=True))
+    for (k, a), (_, b) in zip(card.state_dict().items(), cpu.state_dict().items()):
+        assert torch.equal(a.cpu(), b) and b.is_contiguous(), k
+    back = card_model(config, cuda, seed=8)
+    back.load_state_dict(OdometryModel(ModelConfig.from_config(config),
+                                       torch.Generator().manual_seed(9)).state_dict())
+    want = OdometryModel(ModelConfig.from_config(config), torch.Generator().manual_seed(9))
+    for (k, a), (_, b) in zip(back.state_dict().items(), want.state_dict().items()):
+        assert torch.equal(a.cpu(), b), k
+        if a.dim() == 4:
+            assert a.is_contiguous(memory_format=torch.channels_last)
+    assert all(p.is_contiguous() for p in copy.deepcopy(card).cpu().parameters())
