@@ -183,9 +183,14 @@ just before it and read just after; the placement wrapper counts its exact
 and its packed rule apart, the wrap-pad its forward and backward. A path
 fails unless each of its kernels launched as often as the path should launch
 it and every other kernel not at all. The wrap-pad launches in every eager
-forward and backward of the model and in none of a replayed CUDA graph; it is
-held to 18 forward and 17 backward launches a step on phase 6's main path
-and recorded on the others.
+forward and backward of the model and in every replay of a trainer's step
+graph, in none of a served forward's graph; it is held to 18 forward and 17
+backward launches a step on phase 6's main path and recorded on the others.
+A replayed step runs no wrapper: the trainer adds the launches its capture
+recorded to each counter, so those counts are inferred. The paths that
+``run_training`` drives (main, recipe, brute) are therefore run under the
+profiler too, and the launches its device trace shows, by kernel name, are
+held to the same counts (``traced_launches``).
 
 Phase 12c's processes read their own counts and hand them back.
 
@@ -244,6 +249,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1653,32 +1659,19 @@ def first_batch(trainer):
 def counters():
     """Each kernel row's launch count, by row name -> (wrapper, attribute).
     The placement wrapper counts its two winner rules apart, the wrap-pad
-    its forward and backward."""
-    from delora_tpu_torch.ops.cuda.circular_pad import circular_pad
-    from delora_tpu_torch.ops.cuda.nn_search import nn_search
-    from delora_tpu_torch.ops.cuda.placement import placement
-    from delora_tpu_torch.ops.cuda.window_match import (
-        window_match,
-        window_match_indices,
-        window_match_soft,
-    )
+    its forward and backward; a trainer's replayed step graph adds what its
+    capture recorded to each."""
+    from delora_tpu_torch.ops.cuda.launches import launch_counters
 
-    return {"placement": (placement, "launches_exact"),
-            "placement_packed": (placement, "launches_packed"),
-            "window_match": (window_match, "launches"),
-            "window_match_soft": (window_match_soft, "launches"),
-            "window_match_index": (window_match_indices, "launches"),
-            "nn_search": (nn_search, "launches"),
-            "circular_pad": (circular_pad, "launches_forward"),
-            "circular_pad_grad": (circular_pad, "launches_backward")}
+    return launch_counters()
 
 
 # Path -> each kernel's launches in that path's run (see path_launches).
 PATH_LAUNCHES = {}
 # The backbone's wrap-pad launches in every eager forward and backward of the
-# model on the card (18 and 17 a train step at the default widths), and not
-# in a replayed CUDA graph: a path's count is held where the path states it
-# and recorded everywhere.
+# model on the card (18 and 17 a train step at the default widths) and in
+# every replay of a trainer's step graph, not in a served forward's graph: a
+# path's count is held where the path states it and recorded everywhere.
 MODEL_COUNTERS = ("circular_pad", "circular_pad_grad")
 
 
@@ -1709,6 +1702,46 @@ def path_launches(path: str, expected) -> dict:
     return {name: n for name, n in counts.items() if n}
 
 
+# Each kernel row's device kernels as a trace names them: group -> (kernel
+# names, the rows they launch for). One `write_and_reset` ends every call of
+# either placement rule; the hard and the index matcher share a kernel.
+TRACED_KERNELS = {
+    "placement": (("write_and_reset",), ("placement", "placement_packed")),
+    "window_match_hard": (("window_match_hard",), ("window_match", "window_match_index")),
+    "window_match_soft": (("window_match_soft_halo", "window_match_soft_global"),
+                          ("window_match_soft",)),
+    "nn_search": (("nn_search",), ("nn_search",)),
+    "wrap_pad_nhwc": (("wrap_pad_nhwc",), ("circular_pad",)),
+    "wrap_pad_nhwc_grad": (("wrap_pad_nhwc_grad",), ("circular_pad_grad",)),
+}
+
+
+def traced_launches(prof, path: str, expected):
+    """The hand-written kernels' launches that the device trace ``prof`` of
+    ``path``'s run shows, by :data:`TRACED_KERNELS` group, after
+    :func:`path_launches` has read the counters: fails unless each group's
+    count is what ``expected`` states for its rows (the wrap-pad's as its
+    counters read where unstated), so a replayed graph's launches are
+    measured in the run. -> the groups that launched, with their counts;
+    None where the trace came back with no device activity at all."""
+    from torch.autograd import DeviceType
+
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
+        say(f"{path}: the profiler's trace holds no device activity; launches not traced")
+        return None
+    kernel_group = {k: g for g, (kernels, _) in TRACED_KERNELS.items() for k in kernels}
+    counts = dict.fromkeys(TRACED_KERNELS, 0)
+    for name in names:
+        for token in set(re.findall(r"[A-Za-z_]\w*", name)) & kernel_group.keys():
+            counts[kernel_group[token]] += 1
+    rows = wanted(PATH_LAUNCHES[path], expected)
+    want = {g: sum(rows[r] for r in counted) for g, (_, counted) in TRACED_KERNELS.items()}
+    if counts != want:
+        raise RuntimeError(f"{path}: traced kernel launches {counts}, expected {want}")
+    return {g: n for g, n in counts.items() if n}
+
+
 def check_steps(trainer, epoch, positive=()):
     """Every step of the last epoch: metrics finite, no overflowing tile,
     and the ``positive`` metrics > 0."""
@@ -1725,35 +1758,44 @@ def check_steps(trainer, epoch, positive=()):
 
 def run_training(trainer, card, label, epochs, per_step, positive=()):
     """Train ``epochs`` epochs (2 supervised, then unsupervised) as the path
-    ``label`` and check its kernel launches: ``per_step`` maps a kernel row
-    to its launches a step, every other kernel launches none. -> steady-state
-    pairs/s."""
+    ``label`` under the profiler (CUDA activity) and check its kernel
+    launches, by the counters and by the trace (:func:`traced_launches`):
+    ``per_step`` maps a kernel row to its launches a step, every other
+    kernel launches none. -> steady-state pairs/s, the profiler's cost
+    included."""
+    from torch.profiler import ProfilerActivity, profile
+
     reset_launches()
     steps, history = 0, []
     # The warmup's own switch (epoch loss < 1e-2) would take hundreds of steps
     # at lr 1e-5 from random weights, so the run switches after 2 epochs.
-    for epoch in range(epochs):
-        if epoch == 2:
-            trainer.supervised = False
-        metrics = trainer.train_epoch(epoch)
-        check_steps(trainer, epoch, positive)
-        steps += metrics["steps"]
-        history.append(metrics)
-        say(f"{label} epoch {epoch} ({'supervised' if epoch < 2 else 'unsupervised'}): "
-            f"{metrics['steps']} steps, loss {metrics['loss']:.6f}, loss_pc "
-            f"{metrics['loss_pc']:.6f}, po2pl {metrics['loss_po2pl']:.6f}, pl2pl "
-            f"{metrics['loss_pl2pl']:.6f}, rev {metrics['loss_po2pl_rev']:.6f}, pairs "
-            f"{metrics['num_po2pl_pairs']:.1f}, visible {metrics['visible_pixels']:.1f}, "
-            f"grad_norm {metrics['grad_norm']:.4e}, {metrics['epoch_seconds'] * 1e3:.1f} ms")
-    launches = path_launches(label, {name: k * steps for name, k in per_step.items()})
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for epoch in range(epochs):
+            if epoch == 2:
+                trainer.supervised = False
+            metrics = trainer.train_epoch(epoch)
+            check_steps(trainer, epoch, positive)
+            steps += metrics["steps"]
+            history.append(metrics)
+            say(f"{label} epoch {epoch} ({'supervised' if epoch < 2 else 'unsupervised'}): "
+                f"{metrics['steps']} steps, loss {metrics['loss']:.6f}, loss_pc "
+                f"{metrics['loss_pc']:.6f}, po2pl {metrics['loss_po2pl']:.6f}, pl2pl "
+                f"{metrics['loss_pl2pl']:.6f}, rev {metrics['loss_po2pl_rev']:.6f}, pairs "
+                f"{metrics['num_po2pl_pairs']:.1f}, visible {metrics['visible_pixels']:.1f}, "
+                f"grad_norm {metrics['grad_norm']:.4e}, {metrics['epoch_seconds'] * 1e3:.1f} ms")
+        torch.cuda.synchronize()
+    expected = {name: k * steps for name, k in per_step.items()}
+    launches = path_launches(label, expected)
+    traced = traced_launches(prof, label, expected)
     steady = history[3:]
     pairs_per_s = (sum(h["steps"] for h in steady) * trainer.batch_size
                    / sum(h["epoch_seconds"] for h in steady))
     say(f"{label} B={trainer.batch_size}: {steps} steps (4 supervised), every step's metrics "
         f"finite{''.join(f', {k} > 0' for k in positive)}, overflow tiles 0, launches "
-        + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" for {steps} steps | steady "
-        f"state (epochs 3-{epochs - 1}, host clock, one readback an epoch) {pairs_per_s:.1f} "
-        f"pairs/s on {card}")
+        + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" for {steps} steps, traced "
+        + ("not measured" if traced is None else ", ".join(f"{k} {v}" for k, v in traced.items()))
+        + f", steps {dict(trainer.graph_counts)} | steady state (epochs 3-{epochs - 1}, host "
+        f"clock, one readback an epoch, profiled) {pairs_per_s:.1f} pairs/s on {card}")
     return pairs_per_s
 
 

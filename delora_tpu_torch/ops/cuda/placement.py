@@ -152,7 +152,9 @@ placement.launches_packed = 0
 # Winner keys, one buffer per (device index, raw stream), all bytes 0xFF (the
 # empty key at either width) between calls: the kernel's write pass resets
 # every key it reads, so no call fills it. Calls on one stream run in order,
-# so they can share it.
+# so they can share it. A larger call replaces its stream's buffer here and
+# drops the old one, which a captured CUDA graph may still read: a graph
+# keeps what :func:`workspaces` held at its capture.
 _workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -163,6 +165,13 @@ def _workspace(index: int, stream: int, pixels: int, device) -> torch.Tensor:
         keys = torch.full((pixels,), -1, dtype=torch.int64, device=device)
         _workspaces[(index, stream)] = keys
     return keys
+
+
+def workspaces() -> Tuple[torch.Tensor, ...]:
+    """Every winner-key buffer in use now. A CUDA graph that captured a call
+    holds these for as long as it may replay (``training/graphed.py``), so a
+    buffer replaced by a larger call is not freed under it."""
+    return tuple(_workspaces.values())
 
 
 @functools.lru_cache(maxsize=None)

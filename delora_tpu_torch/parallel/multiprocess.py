@@ -47,6 +47,8 @@ import tempfile
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+from delora_tpu_torch.ops.cuda.launches import launch_counters, launch_counts
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 MODULE = "delora_tpu_torch.parallel.multiprocess"
 
@@ -162,33 +164,14 @@ def _worker(args) -> None:
         pdist.shutdown()
 
 
-def _launch_counters():
-    """Each kernel row's launch counter: name -> (wrapper, attribute); the
-    placement counts its two winner rules apart."""
-    from delora_tpu_torch.ops.cuda.nn_search import nn_search
-    from delora_tpu_torch.ops.cuda.placement import placement
-    from delora_tpu_torch.ops.cuda.window_match import (
-        window_match,
-        window_match_indices,
-        window_match_soft,
-    )
-
-    return {"placement": (placement, "launches_exact"),
-            "placement_packed": (placement, "launches_packed"),
-            "window_match": (window_match, "launches"),
-            "window_match_soft": (window_match_soft, "launches"),
-            "window_match_index": (window_match_indices, "launches"),
-            "nn_search": (nn_search, "launches")}
-
-
 def kernel_launches() -> Dict[str, int]:
     """Each kernel's launch count in this process."""
-    return {name: getattr(w, attr) for name, (w, attr) in _launch_counters().items()}
+    return launch_counts()
 
 
 def reset_kernel_launches() -> None:
     """Every kernel's launch count in this process to 0."""
-    for wrapper, attr in _launch_counters().values():
+    for wrapper, attr in launch_counters().values():
         setattr(wrapper, attr, 0)
 
 

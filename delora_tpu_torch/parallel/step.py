@@ -46,6 +46,7 @@ import torch.distributed as dist
 
 from delora_tpu_torch.parallel.dist import BatchShard, active, batch_shard
 from delora_tpu_torch.training import step as single
+from delora_tpu_torch.training.state import fill_rate, load_optimizer_state
 
 # The twin of ``make_sharded_infer_step``: each pair's transform depends on
 # its own pair only, so a process infers its share of a raw batch with the
@@ -81,14 +82,14 @@ def broadcast_state(model, optimizer, schedule=None, ema=None,
                 value = optimizer.state[p][key]
                 if torch.is_tensor(value):
                     _broadcast_(value, device)
-    shared = [[g["lr"] for g in optimizer.param_groups],
+    shared = [[float(g["lr"]) for g in optimizer.param_groups],
               None if schedule is None else schedule.state_dict()]
     dist.broadcast_object_list(shared, 0, device=device if dist.get_backend() == "nccl"
                                else None)
     for group, lr in zip(optimizer.param_groups, shared[0]):
-        group["lr"] = lr
+        group["lr"] = fill_rate(group["lr"], lr)
     if schedule is not None:
-        schedule.load_state_dict(shared[1])
+        load_optimizer_state(optimizer, schedule, None, shared[1])
     if ema is not None:
         for tensor in ema.params:
             _broadcast_(tensor, device)

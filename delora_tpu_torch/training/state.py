@@ -55,10 +55,56 @@ def make_optimizer(config, params: Iterable[torch.nn.Parameter],
                    global_batch_size: int) -> Tuple[torch.optim.Adam,
                                                     torch.optim.lr_scheduler.LambdaLR]:
     """-> (Adam, its schedule). Call ``schedule.step()`` after every
-    ``optimizer.step()``."""
-    optimizer = torch.optim.Adam(params, lr=effective_learning_rate(config, global_batch_size),
-                                 betas=(0.9, 0.999), eps=1e-8)
+    ``optimizer.step()``.
+
+    Parameters on a CUDA device get the Adam a CUDA graph can capture
+    (``capturable``: its step counts and bias corrections on the device) and a
+    0-d float32 learning rate on the device, which the schedule fills in place,
+    so a replayed step reads the rate of its own update; eager steps on the
+    card run the same Adam. On the CPU the rate is a float and Adam the
+    default one."""
+    params = list(params)
+    lr = effective_learning_rate(config, global_batch_size)
+    capturable = bool(params) and params[0].device.type == "cuda"
+    if capturable:
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 capturable=capturable)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lr_factor(config))
+
+
+def fill_rate(live, value):
+    """The rate ``value`` (a float or a 0-d tensor on any device) in the kind
+    of ``live``: filled into the tensor ``live``, else a float."""
+    if torch.is_tensor(live):
+        return live.fill_(float(value))
+    return float(value)
+
+
+def load_optimizer_state(optimizer: torch.optim.Adam, schedule, optimizer_state,
+                         schedule_state) -> None:
+    """Load an optimizer's and its schedule's saved states into ``optimizer``
+    and ``schedule`` of :func:`make_optimizer`, each keeping its own kind:
+    a capturable Adam its device rate tensors (filled with the saved rates)
+    and its step counts on the device, the CPU's float rates and host counts.
+    So a checkpoint saved on the card resumes on the CPU and back, and a
+    captured step keeps reading the tensors it captured. ``optimizer_state``
+    None loads the schedule alone."""
+    kinds = [(g["capturable"], g["lr"], g.get("initial_lr")) for g in optimizer.param_groups]
+    bases = list(schedule.base_lrs)
+    if optimizer_state is not None:
+        optimizer.load_state_dict(optimizer_state)
+    schedule.load_state_dict(schedule_state)
+    schedule.base_lrs = [fill_rate(b, s) for b, s in zip(bases, schedule.base_lrs)]
+    for group, (capturable, lr, initial) in zip(optimizer.param_groups, kinds):
+        group["capturable"] = capturable
+        group["lr"] = fill_rate(lr, group["lr"])
+        if initial is not None:
+            group["initial_lr"] = fill_rate(initial, group["initial_lr"])
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(p.device if capturable else "cpu")
 
 
 class ParamEma:

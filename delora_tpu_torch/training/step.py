@@ -210,7 +210,10 @@ def augment_rotations(cfg: StepConfig, batch_size: int, generator: torch.Generat
     device = generator.device
     direction = torch.rand((batch_size, 3), generator=generator, device=device)
     if cfg.augment_only_yaw:
-        direction = torch.tensor([0.0, 0.0, 1.0], device=device).expand(batch_size, 3)
+        # The z axis, made on the device: a copy from the host cannot be
+        # captured in a CUDA graph.
+        direction = torch.zeros((batch_size, 3), device=device)
+        direction[:, 2] = 1.0
     else:
         direction = direction / torch.clamp(
             torch.linalg.norm(direction, dim=-1, keepdim=True), min=1e-9)
@@ -508,7 +511,24 @@ def train_step(model, optimizer: torch.optim.Optimizer,
                augment_generator: Optional[torch.Generator] = None,
                rotations: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One Adam step on a batch of any feed -> the step's metrics and
-    ``grad_norm``, as 0-d tensors on the batch's device (not read back).
+    ``grad_norm``, as 0-d tensors on the batch's device (not read back):
+    :func:`update_step`, then ``schedule`` advanced by one update."""
+    metrics = update_step(model, optimizer, batch, cfg, ema, generator, augment_generator,
+                          rotations)
+    if schedule is not None:
+        schedule.step()
+    return metrics
+
+
+def update_step(model, optimizer: torch.optim.Optimizer,
+                batch: Union[FullyCachedBatch, CachedTargetBatch, ScanPairBatch],
+                cfg: StepConfig, ema=None, generator: Optional[torch.Generator] = None,
+                augment_generator: Optional[torch.Generator] = None,
+                rotations: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The step of :func:`train_step` up to and including Adam's update and
+    the EMA, with no Python between its launches that reads the device: the
+    part a CUDA graph captures (``training/graphed.py``); the learning-rate
+    schedule is its caller's.
     ``ema`` (a ``training/state.py::ParamEma``) folds in the updated
     parameters; ``generator`` draws the dropout masks. With ``cfg.augment``
     the source is rotated by ``rotations`` [B, 3, 3], else by rotations drawn
@@ -541,8 +561,6 @@ def train_step(model, optimizer: torch.optim.Optimizer,
         metrics = shard.reduce_metrics(metrics)
     metrics["grad_norm"] = optax_global_norm(grads)
     optimizer.step()
-    if schedule is not None:
-        schedule.step()
     if ema is not None:
         ema.update(model)
     return {k: v.detach() for k, v in metrics.items()}

@@ -60,7 +60,9 @@ images are skipped and nothing is computed.
 
 A plain Python loop takes the steps: the reference's ``lax.scan`` over
 ``steps_per_dispatch`` steps only amortizes the TPU's dispatch round trip, so
-the port does not read that key.
+the port does not read that key. On a CUDA device a step is, where
+``training/graphed.py::graphable`` holds, one replay of the whole step
+captured as a CUDA graph (``graph_counts``); the CPU steps eagerly.
 
 Under data parallelism (a ``torch.distributed`` group joined before the
 trainer is made, ``parallel/dist.py``; one process a device) the same trainer
@@ -112,9 +114,11 @@ from delora_tpu_torch.ops.projection_host import ScanArtifacts, scan_artifacts_n
 from delora_tpu_torch.parallel import dist as pdist
 from delora_tpu_torch.parallel.step import ShardedTables, broadcast_state
 from delora_tpu_torch.training.checkpoint import CheckpointManager
+from delora_tpu_torch.training.graphed import StepGraphs, graphable
 from delora_tpu_torch.training.state import (
     deploy_model,
     ema_params,
+    load_optimizer_state,
     make_optimizer,
     make_param_ema,
 )
@@ -264,6 +268,8 @@ class Trainer:
         if config["random_point_cloud_rotations"]:
             seed = int(torch.randint(0, 2**62, (), generator=generator))
             self.augment_generator = torch.Generator(self.device).manual_seed(seed)
+        self.step_graphs = StepGraphs(self)
+        self.graph_counts = self.step_graphs.counts
 
         self.pair_datasets: Dict[str, ScanPairDataset] = {}
         if sequences is not None:
@@ -422,10 +428,16 @@ class Trainer:
     def step(self, batch: Union[FullyCachedBatch, CachedTargetBatch, ScanPairBatch],
              cfg: StepConfig) -> Dict[str, torch.Tensor]:
         """One train step of the trainer's model, optimizer, schedule, EMA,
-        dropout and augmentation generators (data-parallel over the
-        processes in a process group: ``cfg.shard`` set)."""
+        dropout and augmentation generators: on a CUDA device a replay of
+        the step's CUDA graph where ``training/graphed.py::graphable``
+        holds, else eager (data-parallel over the processes in a process
+        group: ``cfg.shard`` set). ``graph_counts`` counts the captures,
+        the replays and the eager steps."""
+        if graphable(self.device, cfg, self.model):
+            return self.step_graphs.step(batch, cfg)
         if pdist.active():
             cfg = cfg._replace(shard=pdist.batch_shard())
+        self.graph_counts["eager"] += 1
         return train_step(self.model, self.optimizer, batch, cfg, self.schedule, self.ema,
                           self.dropout_generator, self.augment_generator)
 
@@ -554,9 +566,13 @@ class Trainer:
         return state
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Load what :meth:`state_dict` returned, on this trainer's device
+        (the optimizer keeps its own kind, ``training/state.py::
+        load_optimizer_state``); every captured step is dropped."""
+        self.step_graphs.drop()
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.schedule.load_state_dict(state["schedule"])
+        load_optimizer_state(self.optimizer, self.schedule, state["optimizer"],
+                             state["schedule"])
         if self.ema is not None:
             with torch.no_grad():
                 ema = state["ema"]

@@ -16,10 +16,16 @@ engine's CUDA graph must serve the eager forward's transforms bit for bit;
 one test holds the engine's CPU path, which captures nothing. The model runs
 channels-last on the card: the wrap-pad kernel is bit-equal to its plain
 version, a train step runs no cuDNN layout transpose, and the model's loss
-and gradients match the same model run NCHW.
+and gradients match the same model run NCHW. The trainer's step replayed as
+one CUDA graph is bit-equal to its eager step under deterministic kernels,
+also after a key of more pixels replaced the placement's key buffer,
+follows it within the KITTI train cell's limits at that cell's shapes under
+the default kernels, captures once a key, and advances the launch counters
+as an eager step.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -1187,3 +1193,322 @@ def test_card_state_dict_loads_bit_equal_into_a_cpu_model(cuda):
         if a.dim() == 4:
             assert a.is_contiguous(memory_format=torch.channels_last)
     assert all(p.is_contiguous() for p in copy.deepcopy(card).cpu().parameters())
+
+
+# The trainer's step as one replayed CUDA graph (``training/graphed.py``).
+# Graphed and eager trainers are twins from one seed; the eager one carries
+# a forward hook, which keeps its steps eager. Under deterministic kernels
+# (cuDNN's, and a sorted scatter for a gather's backward) two runs of one
+# step agree bit for bit, so the graph must too.
+
+TRAIN_SMALL = {"kitti": {"max_points": 4096, "vertical_cells": 16, "horizontal_cells": 64},
+               "resnet_outputs": 64, "layers": [1, 1, 1, 1],
+               "factor_fewer_resnet_channels": 8, "compute_dtype": "float32",
+               "batch_size": 2, "learning_rate": 1e-3, "unsupervised_at_start": True}
+RECIPE = {**TRAIN_SMALL, "use_dropout": True, "random_point_cloud_rotations": True,
+          "lr_schedule": "cosine", "lr_decay_steps": 9, "ema_decay": 0.9,
+          "soft_match_sigma": 0.3, "lambda_reverse_po2pl": 1.0}
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(was)
+
+
+def drive(count, street=False, n=3000, seed=0):
+    """``count`` scans with unit normals (a fifth of them zero): ``street``
+    clouds (~120k points, 64x720), else ``cloud``'s (16x64)."""
+    rng = np.random.default_rng(seed)
+    scans = []
+    for k in range(count):
+        if street:
+            pts, valid = street_cloud(seed + k)
+            pts = pts[valid]
+        else:
+            pts, valid, _ = cloud(seed + k, n, batch=1)
+            pts = pts[0][valid[0]]
+        nrm = rng.normal(size=pts.shape).astype(np.float32)
+        nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+        nrm[rng.random(len(pts)) < 0.2] = 0.0
+        scans.append((pts, nrm))
+    return scans
+
+
+def twin_trainers(overrides, scans, cuda):
+    """(graphed, eager) trainers from one seed; the eager one hooked."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.training.trainer import Trainer
+
+    config = default_config(overrides)
+    graphed, eager = (Trainer(config, [scans], device=cuda,
+                              generator=torch.Generator().manual_seed(0)) for _ in range(2))
+    eager.model.register_forward_hook(lambda *args: None)
+    return graphed, eager
+
+
+def assert_same_state(a, b):
+    """Weights, Adam's moments, counts and rate, the EMA and the generators,
+    bit for bit."""
+    for (k, x), (_, y) in zip(a.model.state_dict().items(), b.model.state_dict().items()):
+        assert torch.equal(x, y), k
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(sa[key], sb[key]), key
+    assert torch.equal(a.optimizer.param_groups[0]["lr"], b.optimizer.param_groups[0]["lr"])
+    if a.ema is not None:
+        assert all(torch.equal(x, y) for x, y in zip(a.ema.params, b.ema.params))
+    for x, y in ((a.dropout_generator, b.dropout_generator),
+                 (a.augment_generator, b.augment_generator)):
+        if x is not None:
+            assert torch.equal(x.get_state(), y.get_state())
+
+
+def assert_same_epoch(graphed, eager, epoch):
+    """Epoch ``epoch`` of each: every step's metrics bit for bit, then the
+    states."""
+    graphed.train_epoch(epoch)
+    eager.train_epoch(epoch)
+    for k, v in eager.last_steps.items():
+        assert np.array_equal(graphed.last_steps[k], v), (epoch, k, graphed.last_steps[k], v)
+        assert np.isfinite(v).all(), (epoch, k)
+    assert_same_state(graphed, eager)
+
+
+GRAPH_CASES = {
+    "full_64x720_bf16": ({"batch_size": 2, "unsupervised_at_start": True}, True),
+    "full_16x64": (TRAIN_SMALL, False),
+    "cached_16x64": ({**TRAIN_SMALL, "cache_source_projections": False}, False),
+    "raw_16x64": ({**TRAIN_SMALL, "cache_target_projections": False}, False),
+    "projective_16x64": ({**TRAIN_SMALL, "correspondence": "projective"}, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_trainer_equals_the_eager_trainer_on_cuda(cuda, deterministic, case):
+    """Three epochs of three steps (B=2): two eager warm-ups, one capture,
+    seven replays; every step's loss and metrics, the weights and Adam's
+    state bit-equal to the eager trainer's. The fully cached feed at KITTI's
+    64x720 in bf16 and every feed at 16x64."""
+    overrides, street = GRAPH_CASES[case]
+    graphed, eager = twin_trainers(overrides, drive(7, street), cuda)
+    assert graphed.feed == {"cached": "cached", "raw": "raw"}.get(case.split("_")[0], "full")
+    for epoch in range(3):
+        assert_same_epoch(graphed, eager, epoch)
+    assert graphed.graph_counts == {"captures": 1, "replays": 7, "eager": 2}
+    assert eager.graph_counts == {"captures": 0, "replays": 0, "eager": 9}
+    assert isinstance(graphed.optimizer.param_groups[0]["lr"], torch.Tensor)
+    assert graphed.optimizer.param_groups[0]["capturable"]
+
+
+@pytest.mark.cuda
+def test_graphed_recipe_draws_as_the_eager_trainer_on_cuda(cuda, deterministic):
+    """The quality recipe with augmentation and a cosine schedule (dropout,
+    rotations, EMA, soft matching, reverse po2pl): the replays' dropout
+    masks and rotations are the eager steps' (the generators stand alike
+    after each epoch), the rate falls as eagerly, and every step is
+    bit-equal."""
+    graphed, eager = twin_trainers(RECIPE, drive(7), cuda)
+    rates = []
+    for epoch in range(3):
+        assert_same_epoch(graphed, eager, epoch)
+        rates.append(float(graphed.optimizer.param_groups[0]["lr"]))
+    assert rates[0] > rates[1] > rates[2]
+    assert graphed.graph_counts == {"captures": 1, "replays": 7, "eager": 2}
+
+
+def small_batches(trainer, rows):
+    feed = trainer.feeds["kitti"]
+    idx = np.asarray(rows)
+    return trainer.batch(torch.as_tensor(feed.pair_target[idx], device=trainer.device),
+                         torch.as_tensor(feed.pair_source[idx], device=trainer.device))
+
+
+@pytest.mark.cuda
+def test_step_graph_captures_once_a_key_and_steps_eagerly_when_it_must_on_cuda(cuda):
+    """``graph_counts`` through the supervised-to-unsupervised switch (a key
+    each), a half batch (another), a hooked model (eager while hooked),
+    ``load_state_dict`` (every graph dropped: warm-ups and a capture again)
+    and Adam's state cleared (the graph dropped at its next step)."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.training.step import StepConfig
+    from delora_tpu_torch.training.trainer import Trainer
+
+    config = default_config({**TRAIN_SMALL, "unsupervised_at_start": False})
+    trainer = Trainer(config, [drive(7)], device=cuda)
+    counts = trainer.graph_counts
+    sup, unsup = (StepConfig.from_config(config, supervised=s) for s in (True, False))
+
+    def steps(cfg, rows, n=1):
+        for _ in range(n):
+            out = trainer.step(small_batches(trainer, rows), cfg)
+            assert all(torch.isfinite(v) for v in out.values())
+
+    steps(sup, [0, 1], 4)
+    assert counts == {"captures": 1, "replays": 2, "eager": 2}
+    steps(unsup, [0, 1], 4)
+    assert counts == {"captures": 2, "replays": 4, "eager": 4}
+    steps(unsup, [4], 3)
+    assert counts == {"captures": 3, "replays": 5, "eager": 6}
+    steps(sup, [2, 3], 1)
+    assert counts == {"captures": 3, "replays": 6, "eager": 6}
+
+    handle = trainer.model.register_forward_pre_hook(lambda *args: None)
+    steps(unsup, [0, 1], 2)
+    assert counts == {"captures": 3, "replays": 6, "eager": 8}
+    handle.remove()
+    steps(unsup, [0, 1], 1)
+    assert counts == {"captures": 3, "replays": 7, "eager": 8}
+
+    trainer.load_state_dict(trainer.state_dict())
+    assert isinstance(trainer.optimizer.param_groups[0]["lr"], torch.Tensor)
+    assert trainer.optimizer.param_groups[0]["lr"].device.type == "cuda"
+    steps(unsup, [0, 1], 3)
+    assert counts == {"captures": 4, "replays": 8, "eager": 10}
+
+    trainer.optimizer.state.clear()
+    steps(unsup, [0, 1], 4)
+    assert counts == {"captures": 5, "replays": 10, "eager": 12}
+
+
+@pytest.mark.cuda
+def test_replayed_steps_count_launches_and_show_in_a_trace_on_cuda(cuda):
+    """Every kernel's launch counter advances by as much in a replayed step
+    as in an eager one (placement, matcher, wrap-pad both ways), and a
+    traced replay shows the ``training.step_graph`` span with the graph's
+    hand-written kernels inside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from delora_tpu_torch.ops.cuda.launches import launch_counts
+    from delora_tpu_torch.training.step import StepConfig
+
+    graphed, eager = twin_trainers(TRAIN_SMALL, drive(7), cuda)
+    cfg = StepConfig.from_config(graphed.config, supervised=False)
+    per_step = []
+    for trainer in (graphed, eager):
+        deltas = []
+        for _ in range(5):
+            before = launch_counts()
+            trainer.step(small_batches(trainer, [0, 1]), cfg)
+            deltas.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+        per_step.append(deltas)
+    assert graphed.graph_counts == {"captures": 1, "replays": 3, "eager": 2}
+    assert per_step[0] == per_step[1] and all(d == per_step[1][0] for d in per_step[1])
+    assert {"placement_packed", "window_match", "circular_pad",
+            "circular_pad_grad"} <= set(per_step[1][0])
+
+    batch = small_batches(graphed, [2, 3])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graphed.step(batch, cfg)
+        torch.cuda.synchronize()
+    assert "training.step_graph" in {e.key for e in prof.key_averages()}
+    kernels = device_kernels(prof)
+    for name in ("window_match_hard", "select_winners", "write_and_reset", "wrap_pad_nhwc"):
+        assert any(name in k for k in kernels), (name, sorted(set(kernels))[:20])
+
+
+@pytest.mark.cuda
+def test_replays_keep_their_winner_keys_after_a_key_of_more_pixels_on_cuda(cuda, deterministic):
+    """A key of B=2, then one of B=4 (twice the pixels: its warm-up on the
+    capture stream replaces the placement's key buffer of that stream), then
+    the first key's graph again, with the replaced buffer's size allocated
+    and zeroed in between: every step bit-equal to the eager trainer's, as
+    the first graph still holds the buffer it captured."""
+    from delora_tpu_torch.ops.cuda.placement import workspaces
+    from delora_tpu_torch.training.step import StepConfig
+
+    graphed, eager = twin_trainers(TRAIN_SMALL, drive(7), cuda)
+    cfg = StepConfig.from_config(graphed.config, supervised=False)
+
+    def steps(rows, n):
+        for _ in range(n):
+            outs = [t.step(small_batches(t, rows), cfg) for t in (graphed, eager)]
+            for k, v in outs[1].items():
+                assert torch.equal(outs[0][k], v), (rows, k, outs[0][k], v)
+
+    steps([0, 1], 4)
+    before = {w.data_ptr(): w.numel() for w in workspaces()}
+    steps([0, 1, 2, 3], 4)
+    replaced = {p: n for p, n in before.items()
+                if p not in {w.data_ptr() for w in workspaces()}}
+    assert replaced, "the wider key made no new key buffer"
+    junk = [torch.zeros(n, dtype=torch.int64, device=cuda)
+            for n in replaced.values() for _ in range(4)]
+    steps([0, 1], 3)
+    steps([2, 3, 4, 5], 2)
+    del junk
+    assert graphed.graph_counts == {"captures": 2, "replays": 9, "eager": 4}
+    assert_same_state(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_follows_the_eager_trainer_within_the_train_cell_limits_on_cuda(cuda):
+    """The KITTI train cell's shapes and kernels (B=32, 64x720, bf16, the
+    default non-deterministic algorithms). Its checked steps are eager, as
+    the benchmark hooks the model for them; here the graphed trainer,
+    captured, is set back in place to the cell's start (the same weights,
+    Adam's moments and counts at 0) beside its eager twin, and three more
+    steps on three batches are held as the cell holds the program against
+    its reference (``portbench/reference/compare.py::training``, limits of
+    ``portbench/limits/kitti-hdl64.train-b32.json``): each step's loss, and
+    each leaf's weight change by the worst leaf. The poses a replay computes
+    are read by no hook; each step's loss follows them."""
+    import json
+
+    from delora_tpu_torch.training.step import StepConfig
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "portbench", "limits", "kitti-hdl64.train-b32.json")) as f:
+        limits = json.load(f)
+    graphed, eager = twin_trainers({"unsupervised_at_start": True}, drive(33, street=True),
+                                   cuda)
+    assert graphed.batch_size == 32 and graphed.config["compute_dtype"] == "bfloat16"
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = StepConfig.from_config(graphed.config, supervised=False)
+    w0 = {k: p.detach().clone() for k, p in eager.model.named_parameters()}
+    order = np.random.default_rng(0).permutation(32)
+    batches = [order, order[::-1], np.roll(order, 7)]
+    for _ in range(3):
+        graphed.step(small_batches(graphed, batches[0]), cfg)
+    assert graphed.graph_counts == {"captures": 1, "replays": 1, "eager": 2}
+
+    for t in (graphed, eager):
+        with torch.no_grad():
+            for k, p in t.model.named_parameters():
+                p.copy_(w0[k])
+                state = t.optimizer.state.get(p)
+                if state:
+                    for v in state.values():
+                        v.zero_()
+    runs = []
+    for t in (graphed, eager):
+        losses, first = [], None
+        for n, rows in enumerate(batches):
+            losses.append(float(t.step(small_batches(t, rows), cfg)["loss"]))
+            if n == 0:
+                first = {k: t.optimizer.state[p]["exp_avg"] / 0.1
+                         for k, p in t.model.named_parameters()}
+        change = {k: p.detach() - w0[k] for k, p in t.model.named_parameters()}
+        runs.append((losses, first, change))
+    assert graphed.graph_counts == {"captures": 1, "replays": 4, "eager": 2}
+    assert eager.graph_counts["captures"] == 0
+
+    (g_losses, _, g_change), (e_losses, e_first, e_change) = runs
+    assert all(math.isfinite(x) for x in g_losses + e_losses)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(g_losses, e_losses))
+    norm = {k: float(torch.linalg.norm(v.double())) for k, v in e_first.items()}
+    median = float(np.median(list(norm.values())))
+    names = [k for k in norm if norm[k] >= 1e-3 * median]
+    p_n = {k: float(torch.linalg.norm(g_change[k].double())) for k in names}
+    r_n = {k: float(torch.linalg.norm(e_change[k].double())) for k in names}
+    r_median = float(np.median(list(r_n.values())))
+    change_gap = max(abs(p_n[k] - r_n[k]) / max(r_n[k], r_median) for k in names)
+    assert loss_gap <= limits["loss_gap"], (loss_gap, g_losses, e_losses)
+    assert change_gap <= limits["change_gap"], change_gap
