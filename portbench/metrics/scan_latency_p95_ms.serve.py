@@ -1,5 +1,7 @@
 """95th percentile of the latency of every scan of the window, from its due
-time to the return of ``push_scan`` (host clock)."""
+time to the return of ``push_scan`` (host clock). A per-layer reading: the
+tail of 300 scans follows the host's speed, which moves by more between runs
+than an end-to-end bound can hold."""
 
 from portbench.stats import percentile
 

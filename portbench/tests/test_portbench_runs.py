@@ -21,9 +21,10 @@ WORKLOADS = [w["name"] for w in SPEC["workloads"]]
 SEED = 2**31 + 17          # larger than a signed 32-bit integer holds
 
 
-def last_line(capsys, workload, trace=0, seconds="1", dtype=None, variant=None, seed=SEED):
+def last_line(capsys, workload, trace=0, seconds="1", dtype=None, variant=None, seed=SEED,
+              model=None, config=None):
     rc = run.main(["--workload", workload, "--seed", str(seed), "--seconds", seconds,
-                   "--trace", str(trace)], device="cpu", shrink=shrinker(dtype),
+                   "--trace", str(trace)], device="cpu", shrink=shrinker(dtype, model, config),
                   variant=variant)
     assert rc == 0
     captured = capsys.readouterr()
@@ -79,6 +80,31 @@ def test_fault_in_the_timed_path_is_not_correct(capsys, workload, fault):
     """A step that leaves the state unchanged, a step over half its batch, or
     one answer altered where it is produced: each fails the check."""
     result, _ = last_line(capsys, workload, dtype="float32", variant=fault)
+    assert not result["correct"], result["checks"]
+
+
+# DeLORA's per-image feature extractor and single head: a network that no cell
+# names, set in the model block alone.
+EXTRACTOR_AND_SINGLE_HEAD = {"pre_feature_extraction": True, "use_single_mlp_at_output": True}
+
+
+# The KITTI configuration under each traffic mix: training is a cell; serving
+# runs the DARPA serving cell's traffic and limits on the KITTI configuration.
+KITTI_UNDER_EACH_MIX = [("kitti-hdl64.train-b32", None), ("darpa-os1-64.serve-10hz", "kitti-hdl64")]
+
+
+@pytest.mark.parametrize("workload, config", KITTI_UNDER_EACH_MIX,
+                         ids=["kitti-hdl64.train-b32", "kitti-hdl64.serve-10hz"])
+def test_a_model_block_alone_chooses_the_network(capsys, workload, config):
+    """With the extractor and the single head in the model block, the program
+    runs them (the weights load strictly into it), a sound run in float32 is
+    correct, and the control at the cell's bfloat16 is not: no program edit,
+    no entry in ``BENCHMARK.json``."""
+    result, _ = last_line(capsys, workload, dtype="float32", model=EXTRACTOR_AND_SINGLE_HEAD,
+                          config=config)
+    assert result["correct"], result["checks"]
+    result, _ = last_line(capsys, workload, variant="control", model=EXTRACTOR_AND_SINGLE_HEAD,
+                          config=config)
     assert not result["correct"], result["checks"]
 
 

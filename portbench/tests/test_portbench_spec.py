@@ -80,5 +80,9 @@ def test_configurations(config):
     assert data["model"]["factor_fewer_resnet_channels"] == 1
     assert data["model"]["resnet_stage_width_multipliers"] == [1.0] * 4
     from portbench import scenes
+    from portbench.reference import model, train
 
     scenes.scene(data["scene"])
+    # Every key of the model and training blocks is one the reference computes.
+    model.Arch.from_config(data["model"])
+    train.check_config(data["training"])
