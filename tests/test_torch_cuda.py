@@ -21,7 +21,11 @@ one CUDA graph is bit-equal to its eager step under deterministic kernels,
 also after a key of more pixels replaced the placement's key buffer,
 follows it within the KITTI train cell's limits at that cell's shapes under
 the default kernels, captures once a key, and advances the launch counters
-as an eager step.
+as an eager step. DeLORA's per-image feature extractor with the single head
+trains graphed within its own cell's limits of its eager twin and serves
+from its graph within the serving cell's limits of the CPU model, its
+wrap-pads on the 16-byte path at the published widths and in part on the
+one-element path with the backbone cut.
 """
 
 import math
@@ -1377,6 +1381,19 @@ def test_step_graph_captures_once_a_key_and_steps_eagerly_when_it_must_on_cuda(c
     assert counts == {"captures": 5, "replays": 10, "eager": 12}
 
 
+def step_launches(trainer, cfg, steps):
+    """Each of ``steps`` steps' kernel launches on pairs 0 and 1, as the
+    counters that moved and by how much."""
+    from delora_tpu_torch.ops.cuda.launches import launch_counts
+
+    deltas = []
+    for _ in range(steps):
+        before = launch_counts()
+        trainer.step(small_batches(trainer, [0, 1]), cfg)
+        deltas.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+    return deltas
+
+
 @pytest.mark.cuda
 def test_replayed_steps_count_launches_and_show_in_a_trace_on_cuda(cuda):
     """Every kernel's launch counter advances by as much in a replayed step
@@ -1385,19 +1402,11 @@ def test_replayed_steps_count_launches_and_show_in_a_trace_on_cuda(cuda):
     hand-written kernels inside."""
     from torch.profiler import ProfilerActivity, profile
 
-    from delora_tpu_torch.ops.cuda.launches import launch_counts
     from delora_tpu_torch.training.step import StepConfig
 
     graphed, eager = twin_trainers(TRAIN_SMALL, drive(7), cuda)
     cfg = StepConfig.from_config(graphed.config, supervised=False)
-    per_step = []
-    for trainer in (graphed, eager):
-        deltas = []
-        for _ in range(5):
-            before = launch_counts()
-            trainer.step(small_batches(trainer, [0, 1]), cfg)
-            deltas.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
-        per_step.append(deltas)
+    per_step = [step_launches(trainer, cfg, 5) for trainer in (graphed, eager)]
     assert graphed.graph_counts == {"captures": 1, "replays": 3, "eager": 2}
     assert per_step[0] == per_step[1] and all(d == per_step[1][0] for d in per_step[1])
     assert {"placement_packed", "window_match", "circular_pad",
@@ -1448,37 +1457,22 @@ def test_replays_keep_their_winner_keys_after_a_key_of_more_pixels_on_cuda(cuda,
     assert_same_state(graphed, eager)
 
 
-@pytest.mark.cuda
-def test_graphed_trainer_follows_the_eager_trainer_within_the_train_cell_limits_on_cuda(cuda):
-    """The KITTI train cell's shapes and kernels (B=32, 64x720, bf16, the
-    default non-deterministic algorithms). Its checked steps are eager, as
-    the benchmark hooks the model for them; here the graphed trainer,
-    captured, is set back in place to the cell's start (the same weights,
-    Adam's moments and counts at 0) beside its eager twin, and three more
-    steps on three batches are held as the cell holds the program against
-    its reference (``portbench/reference/compare.py::training``, limits of
-    ``portbench/limits/kitti-hdl64.train-b32.json``): each step's loss, and
-    each leaf's weight change by the worst leaf. The poses a replay computes
-    are read by no hook; each step's loss follows them."""
+def cell_limits(workload):
+    """The limits of a benchmark cell (``portbench/limits/<workload>.json``)."""
     import json
 
-    from delora_tpu_torch.training.step import StepConfig
-
     with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                           "portbench", "limits", "kitti-hdl64.train-b32.json")) as f:
-        limits = json.load(f)
-    graphed, eager = twin_trainers({"unsupervised_at_start": True}, drive(33, street=True),
-                                   cuda)
-    assert graphed.batch_size == 32 and graphed.config["compute_dtype"] == "bfloat16"
-    assert not torch.are_deterministic_algorithms_enabled()
-    cfg = StepConfig.from_config(graphed.config, supervised=False)
-    w0 = {k: p.detach().clone() for k, p in eager.model.named_parameters()}
-    order = np.random.default_rng(0).permutation(32)
-    batches = [order, order[::-1], np.roll(order, 7)]
-    for _ in range(3):
-        graphed.step(small_batches(graphed, batches[0]), cfg)
-    assert graphed.graph_counts == {"captures": 1, "replays": 1, "eager": 2}
+                           "portbench", "limits", f"{workload}.json")) as f:
+        return json.load(f)
 
+
+def follow_from_start(graphed, eager, batches, cfg):
+    """Both trainers set back in place to the same start (the eager one's
+    weights, Adam's moments and counts at 0), then a step on each of
+    ``batches`` -> the gaps the benchmark's training check holds against its
+    limits (``portbench/reference/compare.py::training``): each step's loss,
+    and each leaf's weight change by the worst leaf."""
+    w0 = {k: p.detach().clone() for k, p in eager.model.named_parameters()}
     for t in (graphed, eager):
         with torch.no_grad():
             for k, p in t.model.named_parameters():
@@ -1497,8 +1491,6 @@ def test_graphed_trainer_follows_the_eager_trainer_within_the_train_cell_limits_
                          for k, p in t.model.named_parameters()}
         change = {k: p.detach() - w0[k] for k, p in t.model.named_parameters()}
         runs.append((losses, first, change))
-    assert graphed.graph_counts == {"captures": 1, "replays": 4, "eager": 2}
-    assert eager.graph_counts["captures"] == 0
 
     (g_losses, _, g_change), (e_losses, e_first, e_change) = runs
     assert all(math.isfinite(x) for x in g_losses + e_losses)
@@ -1510,5 +1502,161 @@ def test_graphed_trainer_follows_the_eager_trainer_within_the_train_cell_limits_
     r_n = {k: float(torch.linalg.norm(e_change[k].double())) for k in names}
     r_median = float(np.median(list(r_n.values())))
     change_gap = max(abs(p_n[k] - r_n[k]) / max(r_n[k], r_median) for k in names)
-    assert loss_gap <= limits["loss_gap"], (loss_gap, g_losses, e_losses)
+    return loss_gap, change_gap, (g_losses, e_losses)
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_follows_the_eager_trainer_within_the_train_cell_limits_on_cuda(cuda):
+    """The KITTI train cell's shapes and kernels (B=32, 64x720, bf16, the
+    default non-deterministic algorithms). Its checked steps are eager, as
+    the benchmark hooks the model for them; here the graphed trainer,
+    captured, is set back in place to the cell's start (the same weights,
+    Adam's moments and counts at 0) beside its eager twin, and three more
+    steps on three batches are held as the cell holds the program against
+    its reference (``portbench/reference/compare.py::training``, limits of
+    ``portbench/limits/kitti-hdl64.train-b32.json``): each step's loss, and
+    each leaf's weight change by the worst leaf. The poses a replay computes
+    are read by no hook; each step's loss follows them."""
+    from delora_tpu_torch.training.step import StepConfig
+
+    limits = cell_limits("kitti-hdl64.train-b32")
+    graphed, eager = twin_trainers({"unsupervised_at_start": True}, drive(33, street=True),
+                                   cuda)
+    assert graphed.batch_size == 32 and graphed.config["compute_dtype"] == "bfloat16"
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = StepConfig.from_config(graphed.config, supervised=False)
+    order = np.random.default_rng(0).permutation(32)
+    batches = [order, order[::-1], np.roll(order, 7)]
+    for _ in range(3):
+        graphed.step(small_batches(graphed, batches[0]), cfg)
+    assert graphed.graph_counts == {"captures": 1, "replays": 1, "eager": 2}
+
+    loss_gap, change_gap, losses = follow_from_start(graphed, eager, batches, cfg)
+    assert graphed.graph_counts == {"captures": 1, "replays": 4, "eager": 2}
+    assert eager.graph_counts["captures"] == 0
+    assert loss_gap <= limits["loss_gap"], (loss_gap, *losses)
     assert change_gap <= limits["change_gap"], change_gap
+
+
+# DeLORA's per-image feature extractor and single head (the benchmark's
+# ``kitti-hdl64-extractor`` configuration), bf16, at 16x64. At the published
+# widths every wrap-pad moves 16 bytes a thread: the extractor's first layer
+# pads the float32 image (4 channels, 16 bytes a pixel) before autocast casts
+# it for the convolution, and every later pixel is a multiple of 8 bfloat16
+# channels. With the backbone cut to a sixteenth of its channels, the stem's
+# 4 bfloat16 outputs (8-byte pixels) send the max-pool's pad, stage 1's four
+# and stage 2's first (6 a forward, 6 a backward) down the one-element path.
+EXTRACTOR_SMALL = {**TRAIN_SMALL, "pre_feature_extraction": True,
+                   "use_single_mlp_at_output": True, "layers": [2, 2, 2, 2],
+                   "resnet_outputs": 1000, "factor_fewer_resnet_channels": 1,
+                   "compute_dtype": "bfloat16", "learning_rate": 1e-5}
+# case -> (overrides, one-element pads a forward).
+EXTRACTOR_CASES = {"published": (EXTRACTOR_SMALL, 0),
+                   "cut_16": ({**EXTRACTOR_SMALL, "factor_fewer_resnet_channels": 16}, 6)}
+# The extractor's five pads an image, the stem's, the max-pool's and two a
+# block; backward all but the two that read an image.
+EXTRACTOR_PADS = (28, 26)
+
+
+def pad_launches(counts):
+    """The wrap-pad's launches of one step, of the ``launch_counts`` deltas."""
+    forward, backward = EXTRACTOR_PADS
+    return ({k: v for k, v in counts.items() if k.startswith("circular_pad")}
+            == {"circular_pad": forward, "circular_pad_grad": backward})
+
+
+def vector_widths(monkeypatch):
+    """The bytes a thread moves in each wrap-pad launched from here on (16,
+    or one element), in a list that grows as the wrapper picks them."""
+    import importlib
+
+    pad = importlib.import_module("delora_tpu_torch.ops.cuda.circular_pad")
+    picked, pick = [], pad._vec_bytes
+
+    def recorded(*args):
+        picked.append(pick(*args))
+        return picked[-1]
+
+    monkeypatch.setattr(pad, "_vec_bytes", recorded)
+    return picked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EXTRACTOR_CASES))
+def test_graphed_extractor_step_follows_the_eager_step_within_its_cell_limits_on_cuda(
+        cuda, case, monkeypatch):
+    """The extractor and single head trained graphed (one capture, then
+    replays) beside an eager twin under the default kernels: every step's
+    launches equal, and each eager step's wrap-pads by path as stated above;
+    then three steps from one start within the limits of the benchmark's
+    ``kitti-hdl64-extractor.train-b32`` cell."""
+    from delora_tpu_torch.training.step import StepConfig
+
+    overrides, element = EXTRACTOR_CASES[case]
+    limits = cell_limits("kitti-hdl64-extractor.train-b32")
+    graphed, eager = twin_trainers(overrides, drive(7), cuda)
+    assert graphed.model.feature_extractor is not None
+    assert hasattr(graphed.model, "fully_connected_rot_trans")
+    cfg = StepConfig.from_config(graphed.config, supervised=False)
+    per_step = [step_launches(graphed, cfg, 5)]
+    picked = vector_widths(monkeypatch)
+    per_step.append(step_launches(eager, cfg, 5))
+    assert graphed.graph_counts == {"captures": 1, "replays": 3, "eager": 2}
+    assert per_step[0] == per_step[1] and all(d == per_step[1][0] for d in per_step[1])
+    assert pad_launches(per_step[0][-1]), per_step[0][-1]
+    assert len(picked) == 5 * sum(EXTRACTOR_PADS)
+    assert sum(v != 16 for v in picked) == 5 * 2 * element
+
+    batches = [[0, 1], [2, 3], [4, 5]]
+    loss_gap, change_gap, losses = follow_from_start(graphed, eager, batches, cfg)
+    assert graphed.graph_counts == {"captures": 1, "replays": 6, "eager": 2}
+    assert loss_gap <= limits["loss_gap"], (loss_gap, *losses)
+    assert change_gap <= limits["change_gap"], change_gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EXTRACTOR_CASES))
+def test_graphed_extractor_forward_serves_the_cpu_models_poses_on_cuda(cuda, case,
+                                                                      monkeypatch):
+    """``StreamingOdometry`` with the extractor and single head: its capture
+    (three eager forwards and two graphs) launches the wrap-pad forward
+    only, by path as stated above; every served transform equals the card's
+    eager forward bit for bit, and holds to the CPU model's float32 forward
+    within the serving cell's limits (``portbench/limits/
+    darpa-os1-64.serve-10hz.json``), in units of how far the CPU model in
+    bfloat16 moves each pair (``portbench/reference/compare.py::pose_gaps``)."""
+    from delora_tpu_torch.config import default_config
+    from delora_tpu_torch.models.odometry import ModelConfig, OdometryModel
+    from delora_tpu_torch.ops.cuda.launches import launch_counts
+    from delora_tpu_torch.serving.stream import StreamingOdometry
+    from delora_tpu_torch.training.step import forward_pose
+    from portbench.reference.compare import pose_gaps
+
+    overrides, element = EXTRACTOR_CASES[case]
+    limits = cell_limits("darpa-os1-64.serve-10hz")
+    config = default_config(overrides)
+    before = launch_counts()
+    picked = vector_widths(monkeypatch)
+    engine = StreamingOdometry(config, device=cuda)
+    torch.cuda.synchronize()
+    captured = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    assert captured == {"circular_pad": 5 * EXTRACTOR_PADS[0]}
+    assert len(picked) == 5 * EXTRACTOR_PADS[0]
+    assert sum(v != 16 for v in picked) == 5 * element
+    served, images = serve_against_eager(engine, [edge_scan(np.float32, seed=s)
+                                                  for s in range(7)])
+    assert len(served) == 6 and engine.graph_counts == {"captures": 2, "replays": 6}
+
+    state = {k: v.cpu() for k, v in engine.model.state_dict().items()}
+    transforms = {}
+    for dtype in ("float32", "bfloat16"):
+        model = OdometryModel(ModelConfig.from_config({**config, "compute_dtype": dtype}))
+        model.load_state_dict(state)
+        with torch.no_grad():
+            transforms[dtype] = np.concatenate([
+                forward_pose(model.eval(), a.cpu(), b.cpu()).double().numpy()
+                for a, b in zip(images[:-1], images[1:])])
+    gaps = pose_gaps(np.stack(served).astype(np.float64), transforms["float32"],
+                     transforms["bfloat16"])
+    assert gaps["rot"] <= limits["rel_rot_gap"], gaps
+    assert gaps["trans"] <= limits["rel_trans_gap"], gaps
